@@ -13,3 +13,9 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); skips without one"
+    )

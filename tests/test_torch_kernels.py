@@ -1,0 +1,371 @@
+"""The port's cache-simulation kernels against the JAX package's Pallas kernels.
+
+K1 (``lru_hits``) and K2 (``fused_levels``) run here through their plain
+PyTorch versions (CPU tensors) and through a g++ build of the CUDA step
+header ``csrc/cache_sim_step.h`` — the logic the GPU runs, compiled for
+the host.  Both are held bit for bit against the Pallas kernels in
+interpret mode (``lru_hits`` / ``lru_hits_carry`` / ``fused_levels_pallas``)
+and the pure-Python oracle ``lru_hits_ref``: hit bits, hit levels and raw
+final states (every version stamps ages with the position in the row plus
+1).  The non-carry Pallas kernel runs its machine over tail pads, so it is
+compared on real cells only.  The kernels themselves run against the
+plain versions on a card in ``tests/test_torch_cuda.py``.
+"""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # bare environment: seeded stub strategies
+    from _hypothesis_fallback import given, settings, st
+
+import jax.numpy as jnp
+
+from repro.kernels.cache_sim.cache_sim import lru_hits as pallas_lru_hits
+from repro.kernels.cache_sim.cache_sim import lru_hits_carry as pallas_lru_hits_carry
+from repro.kernels.cache_sim.fused_sim import fused_levels_pallas
+from repro.kernels.cache_sim.ref import lru_hits_ref
+from repro.memsim import engine as jengine
+from repro.memsim import fused as jfused
+
+from repro_torch.kernels.cache_sim import cache_sim as tcache_sim
+from repro_torch.kernels.cache_sim.ops import (
+    fused_levels,
+    fused_levels_plain,
+    lru_hits,
+    lru_hits_plain,
+)
+from repro_torch.memsim import engine as tengine
+from repro_torch.memsim import fused as tfused
+
+CPU = torch.device("cpu")
+GEOMETRIES = [
+    ((16, 8), (64, 8), (256, 16)),  # SCALED demand
+    ((64, 8), (256, 16)),  # SCALED scoring
+    ((1, 4), (4, 1)),  # single-set L1, direct-mapped L2
+    ((4, 1), (8, 2), (16, 1)),  # ways=1 at the outer and inner level
+    ((8, 2), (8, 4)),  # equal set counts
+]
+
+
+def _stream(n, span, seed):
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, span, n).astype(np.int64)
+    if seed % 3 == 0:  # repeated-block runs
+        blocks = np.repeat(blocks, rng.integers(1, 4, n))[: max(n, 1)]
+    return blocks
+
+
+def _random_canonical(sets, ways, seed):
+    rng = np.random.default_rng(seed)
+    tags = rng.integers(0, 99, (sets, ways))
+    tags[rng.random((sets, ways)) < 0.3] = -1
+    return jengine.canonicalize_state(tags, rng.integers(1, 50, (sets, ways)))
+
+
+def _k1_ragged(blocks, sets, tags, age):
+    """Port K1 inputs (ragged, CPU tensors) of one stream."""
+    srt, _, counts = tengine.group_by_set(blocks, sets)
+    offsets = tengine.ragged_offsets([counts])
+    return (
+        torch.from_numpy(srt),
+        torch.from_numpy(offsets),
+        torch.from_numpy(np.ascontiguousarray(tags, dtype=np.int32)),
+        torch.from_numpy(np.ascontiguousarray(age, dtype=np.int32)),
+    )
+
+
+def _k2_ragged(blocks, levels, states):
+    groups = jfused.fused_group_count(levels)
+    kept, _, _, counts = tfused._group_collapse(blocks, groups)
+    offsets = tengine.ragged_offsets([counts])
+    tags = [
+        torch.from_numpy(np.ascontiguousarray(jfused.state_to_groups(s.tags, groups)))
+        for s in states
+    ]
+    age = [
+        torch.from_numpy(np.ascontiguousarray(jfused.state_to_groups(s.age, groups)))
+        for s in states
+    ]
+    return torch.from_numpy(kept), torch.from_numpy(offsets), tags, age
+
+
+def _pallas_k1(blocks, sets, st0):
+    """Pallas ``lru_hits_carry`` (interpret) in the port's sorted order:
+    ``(hits, tags, age)``."""
+    padded, _, col, row = jengine.group_by_set(blocks, sets)
+    mat = np.ascontiguousarray(padded.T)  # (sets, L)
+    ph, pt, pa = pallas_lru_hits_carry(
+        jnp.asarray(mat), jnp.asarray(st0.tags), jnp.asarray(st0.age),
+        set_tile=min(sets, 8), interpret=True,
+    )
+    return np.asarray(ph)[row, col], np.asarray(pt), np.asarray(pa)
+
+
+def _pallas_k2(blocks, geom, states):
+    """``fused_levels_pallas`` (interpret) in the port's kept-sorted order:
+    ``(levels, [tags per level], [age per level])``."""
+    groups = jfused.fused_group_count(geom)
+    padded, _, _, col, row, _ = jfused._group_collapse(blocks, groups)
+    res = fused_levels_pallas(
+        jnp.asarray(padded.T), geom,
+        *jfused._grouped_state_args(states, groups), interpret=True,
+    )
+    k = len(geom)
+    return (
+        np.asarray(res[0]).T[col, row],
+        [np.asarray(res[1 + 2 * i]) for i in range(k)],
+        [np.asarray(res[2 + 2 * i]) for i in range(k)],
+    )
+
+
+def assert_k1_equal(got, ref):
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
+
+
+def assert_k2_equal(got, ref):
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
+    for part in (1, 2):
+        for g, r in zip(got[part], ref[part]):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
+
+
+# ------------------------------------------------------------------ K1
+
+
+@given(
+    n=st.integers(1, 300),
+    span=st.integers(1, 200),
+    sets=st.sampled_from([1, 4, 8, 16]),
+    ways=st.sampled_from([1, 2, 4, 8]),
+    seed=st.integers(0, 50),
+)
+@settings(max_examples=15, deadline=None)
+def test_k1_plain_matches_pallas_and_oracle(n, span, sets, ways, seed):
+    blocks = _stream(n, span, seed)
+    padded, _, col, row = jengine.group_by_set(blocks, sets)
+    mat = np.ascontiguousarray(padded.T)  # (sets, L)
+    init = jengine.init_state(sets, ways)
+    got = lru_hits_plain(*_k1_ragged(blocks, sets, init.tags, init.age))
+    # the non-carry kernel and the oracle: hits on real cells only
+    pallas = np.asarray(
+        pallas_lru_hits(jnp.asarray(mat), ways, set_tile=sets, interpret=True)
+    )
+    np.testing.assert_array_equal(got[0].numpy(), pallas[row, col])
+    np.testing.assert_array_equal(got[0].numpy(), lru_hits_ref(mat, ways)[row, col])
+    # the carry kernel from the canonical cold state: hits and raw state
+    assert_k1_equal(got, _pallas_k1(blocks, sets, init))
+
+
+@pytest.mark.parametrize("sets,ways", [(16, 8), (64, 8), (8, 1), (1, 16)])
+def test_k1_plain_resumes_carry_like_pallas(sets, ways):
+    blocks = _stream(700, 40 * sets, seed=4)
+    st0 = _random_canonical(sets, ways, seed=sets + ways)
+    got = lru_hits_plain(*_k1_ragged(blocks, sets, st0.tags, st0.age))
+    assert_k1_equal(got, _pallas_k1(blocks, sets, st0))
+
+
+def test_k1_stream_axis_equals_per_stream():
+    """One plain call over three streams (rows stacked) == three calls."""
+    sets, ways = 16, 4
+    streams = [_stream(n, 500, seed=n) for n in (5, 300, 120)]
+    init = tengine.init_state(sets, ways, CPU)
+    grouped = [tengine.group_by_set(s, sets) for s in streams]
+    blocks = torch.from_numpy(np.concatenate([g[0] for g in grouped]))
+    offsets = torch.from_numpy(tengine.ragged_offsets([g[2] for g in grouped]))
+    tags = init.tags.repeat(3, 1)
+    age = init.age.repeat(3, 1)
+    hits, t1, a1 = lru_hits(blocks, offsets, tags, age)
+    base = 0
+    for i, s in enumerate(streams):
+        h, t, a = lru_hits(*_k1_ragged(s, sets, init.tags.numpy(), init.age.numpy()))
+        np.testing.assert_array_equal(hits[base : base + len(s)].numpy(), h.numpy())
+        np.testing.assert_array_equal(t1[i * sets : (i + 1) * sets].numpy(), t.numpy())
+        np.testing.assert_array_equal(a1[i * sets : (i + 1) * sets].numpy(), a.numpy())
+        base += len(s)
+
+
+# ------------------------------------------------------------------ K2
+
+
+@given(
+    n=st.integers(1, 250),
+    span=st.integers(1, 1500),
+    geom=st.sampled_from(GEOMETRIES),
+    seed=st.integers(0, 50),
+)
+@settings(max_examples=15, deadline=None)
+def test_k2_plain_matches_pallas(n, span, geom, seed):
+    blocks = _stream(n, span, seed)
+    states = [_random_canonical(s, w, seed + i) for i, (s, w) in enumerate(geom)]
+    kept, offsets, tags0, age0 = _k2_ragged(blocks, geom, states)
+    got = fused_levels_plain(kept, offsets, geom, tags0, age0)
+    assert_k2_equal(got, _pallas_k2(blocks, geom, states))
+
+
+# ------------------------------------------- g++ build of the step header
+
+
+@pytest.fixture(scope="session")
+def host_steps(tmp_path_factory):
+    """ctypes handle on a g++ build of ``cache_sim_step.h`` (through the
+    test-only driver ``csrc/host_step_test.cpp``)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    src = tcache_sim.SOURCE.parent / "host_step_test.cpp"
+    out = tmp_path_factory.mktemp("host_steps") / "libhost_step_test.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out), str(src)],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.host_lru_hits.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.host_lru_hits.restype = ci
+    lib.host_fused_levels.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.host_fused_levels.restype = ci
+    return lib
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def host_lru(lib, blocks, offsets, tags, age):
+    hits = torch.empty(blocks.shape[0], dtype=torch.uint8)
+    to, ao = torch.empty_like(tags), torch.empty_like(age)
+    rc = lib.host_lru_hits(
+        _ptr(blocks), _ptr(offsets), offsets.shape[0] - 1, tags.shape[1],
+        _ptr(tags), _ptr(age), _ptr(to), _ptr(ao), _ptr(hits),
+    )
+    assert rc == 0
+    return hits, to, ao
+
+
+def host_fused(lib, blocks, offsets, levels, tags, age):
+    groups = min(s for s, _ in levels)
+    k = len(levels)
+    ints = ctypes.c_int * k
+    ptrs = ctypes.c_void_p * k
+    to = [t.clone() for t in tags]
+    ao = [a.clone() for a in age]
+    lvl = torch.empty(blocks.shape[0], dtype=torch.int8)
+    rc = lib.host_fused_levels(
+        _ptr(blocks), _ptr(offsets), offsets.shape[0] - 1, k, groups.bit_length() - 1,
+        ints(*[s // groups - 1 for s, _ in levels]), ints(*[w for _, w in levels]),
+        ints(*[(s // groups) * w for s, w in levels]),
+        ptrs(*[t.data_ptr() for t in to]), ptrs(*[a.data_ptr() for a in ao]), _ptr(lvl),
+    )
+    assert rc == 0
+    return lvl, to, ao
+
+
+@given(
+    n=st.integers(0, 600),
+    span=st.integers(1, 400),
+    sets=st.sampled_from([1, 4, 16, 64]),
+    ways=st.sampled_from([1, 2, 3, 8, 16]),
+    seed=st.integers(0, 50),
+)
+@settings(max_examples=25, deadline=None)
+def test_host_build_k1_matches_plain_and_jax(host_steps, n, span, sets, ways, seed):
+    from repro.memsim.scan_cache import cache_pass as jax_reference
+
+    blocks = _stream(n, span, seed) if n else np.zeros(0, np.int64)
+    st0 = _random_canonical(sets, ways, seed)
+    args = _k1_ragged(blocks, sets, st0.tags, st0.age)
+    got = host_lru(host_steps, *args)
+    assert_k1_equal(got, lru_hits_plain(*args))
+    assert_k1_equal(got, _pallas_k1(blocks, sets, st0))
+    if n:
+        jh, jst = jax_reference(blocks, sets, ways, st0, return_state=True)
+        _, order, _ = tengine.group_by_set(blocks, sets)
+        full = np.zeros(n, dtype=bool)
+        full[order] = got[0].numpy().astype(bool)
+        np.testing.assert_array_equal(full, jh)
+        canon = tengine.canonicalize_state(got[1], got[2])
+        np.testing.assert_array_equal(canon.tags.numpy(), jst.tags)
+        np.testing.assert_array_equal(canon.age.numpy(), jst.age)
+
+
+@given(
+    n=st.integers(0, 500),
+    span=st.integers(1, 3000),
+    geom=st.sampled_from(GEOMETRIES),
+    seed=st.integers(0, 50),
+)
+@settings(max_examples=25, deadline=None)
+def test_host_build_k2_matches_plain_and_jax(host_steps, n, span, geom, seed):
+    blocks = _stream(n, span, seed) if n else np.zeros(0, np.int64)
+    states = [_random_canonical(s, w, seed + i) for i, (s, w) in enumerate(geom)]
+    args = _k2_ragged(blocks, geom, states)
+    got = host_fused(host_steps, args[0], args[1], geom, args[2], args[3])
+    assert_k2_equal(got, fused_levels_plain(args[0], args[1], geom, args[2], args[3]))
+    assert_k2_equal(got, _pallas_k2(blocks, geom, states))
+    if n:
+        jl, jst = jfused.fused_cache_pass(
+            blocks, geom, states, return_states=True, use_pallas=False, force_scan=True
+        )
+        groups = jfused.fused_group_count(geom)
+        _, order, keep, _ = tfused._group_collapse(blocks, groups)
+        np.testing.assert_array_equal(
+            tfused._unpack_levels(n, got[0].numpy(), order, keep), jl
+        )
+        for i, (s, w) in enumerate(geom):
+            canon = tengine.canonicalize_state(
+                tfused.state_from_groups(got[1][i], s, w),
+                tfused.state_from_groups(got[2][i], s, w),
+            )
+            np.testing.assert_array_equal(canon.tags.numpy(), jst[i].tags)
+            np.testing.assert_array_equal(canon.age.numpy(), jst[i].age)
+
+
+# ------------------------------------------------------ wrappers, routing
+
+
+def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
+    """A tensor off the CPU goes to the kernel; when the kernel cannot be
+    built the call raises instead of falling back to the plain version."""
+    from repro_torch.kernels.cache_sim import fused_sim
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached with a device tensor")
+
+    def no_build(source):
+        raise RuntimeError(f"cannot build {source.name} here")
+
+    monkeypatch.setattr(tcache_sim, "lru_hits_plain", no_plain)
+    monkeypatch.setattr(fused_sim, "fused_levels_plain", no_plain)
+    monkeypatch.setattr(tcache_sim, "load", no_build)
+    monkeypatch.setattr(fused_sim, "load", no_build)
+    meta = torch.device("meta")
+    blocks = torch.zeros(10, dtype=torch.int32, device=meta)
+    offsets = torch.zeros(5, dtype=torch.int64, device=meta)
+    state = torch.zeros((4, 8), dtype=torch.int32, device=meta)
+    with pytest.raises(RuntimeError, match="cannot build lru_hits"):
+        lru_hits(blocks, offsets, state, state)
+    with pytest.raises(RuntimeError, match="cannot build fused_levels"):
+        fused_levels(blocks, offsets, ((4, 8),), [state], [state])
+
+
+def test_wrappers_validate_inputs():
+    blocks = torch.zeros(4, dtype=torch.int32)
+    offsets = torch.tensor([0, 4], dtype=torch.int64)
+    state = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        lru_hits(blocks.long(), offsets, state, state)
+    with pytest.raises(ValueError):
+        lru_hits(blocks, torch.tensor([0, 2, 4]), state, state)
+    with pytest.raises(ValueError):
+        lru_hits(blocks, offsets, torch.zeros((1, 40), dtype=torch.int32),
+                 torch.zeros((1, 40), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fused_levels(blocks, offsets, ((1, 4), (2, 4)), [state], [state])
