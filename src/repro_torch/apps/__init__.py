@@ -1,9 +1,9 @@
 """Evolving-graph applications (Ligra-style, PyTorch) + memory-trace generation.
 
 Kernels register declaratively (:mod:`repro_torch.apps.registry`).  Ported
-so far: ``pgd`` (PageRankDelta) and its ``pgd_pull`` variant; the other
-kernels of ``repro.apps`` (cc, bfs, bellmanford, bfs_do) come in a later
-slice.  Kernels are written against the ``edge_map`` / ``run_iterations``
+so far: ``pgd`` (PageRankDelta) with its ``pgd_pull`` variant, and ``bfs``
+with its ``bfs_do`` variant; cc and bellmanford come in a later slice.
+Kernels are written against the ``edge_map`` / ``run_iterations``
 primitives in :mod:`repro_torch.apps.ligra` and return an
 :class:`~repro_torch.apps.ligra.AppRun`, which the tracer
 (:mod:`repro_torch.apps.trace`, numpy) turns into access streams.
@@ -19,6 +19,7 @@ from repro_torch.apps.registry import (
     register_kernel_variant,
 )
 from repro_torch.apps.pagerank_delta import pagerank_delta
+from repro_torch.apps.bfs import bfs, pick_root
 from repro_torch.apps.trace import (
     ARRAYS,
     IterationTrace,
@@ -34,6 +35,8 @@ __all__ = [
     "edge_map_sum",
     "edge_map_min",
     "pagerank_delta",
+    "bfs",
+    "pick_root",
     "get_kernel",
     "has_kernel",
     "kernel_traits",

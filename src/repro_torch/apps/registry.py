@@ -126,9 +126,10 @@ def _ensure_builtins_loaded() -> None:
     try:
         # Each kernel module self-registers at import time (including the
         # direction variants declared next to their base kernels).
-        # Only PageRankDelta is ported so far; cc, bfs and bellmanford
-        # register here once their modules exist.
+        # Ported so far: PageRankDelta and BFS; cc and bellmanford register
+        # here once their modules exist.
         import repro_torch.apps.pagerank_delta  # noqa: F401
+        import repro_torch.apps.bfs  # noqa: F401
     except BaseException:
         # Roll back this attempt's registrations and evict the modules it
         # imported, so a retry re-executes the decorators instead of dying

@@ -1,9 +1,10 @@
 """Build the port's carried state and graphs from plain numpy arrays.
 
 The JAX package hands its :class:`CacheState` carries, demand-simulation
-carries and CSR graphs out as numpy arrays; these functions turn such
-arrays into the port's objects, so a pass of the port can resume exactly
-where a pass of the JAX package stopped (the cross-package shard seam).
+carries, CSR graphs and evolving pairs out as numpy arrays; these functions
+turn such arrays into the port's objects, so a pass of the port can resume
+exactly where a pass of the JAX package stopped (the cross-package shard
+seam), and the port's apps can run on a pair the JAX package made.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.evolve import EvolvingGraphPair
 from repro_torch.memsim.engine import CacheState
 from repro_torch.memsim.hierarchy import DemandState
 
@@ -62,4 +64,21 @@ def csr_graph(
     return g
 
 
-__all__ = ["cache_state", "csr_graph", "demand_state"]
+def _graph(g) -> CSRGraph:
+    return csr_graph(g.offsets, g.neighbors, g.weights, name=g.name)
+
+
+def evolving_pair(base, run1, run2, mask1: np.ndarray, mask2: np.ndarray) -> EvolvingGraphPair:
+    """An :class:`EvolvingGraphPair` from three CSR graphs (any objects with
+    ``offsets``, ``neighbors``, ``weights`` and ``name``, such as the JAX
+    package's) and the two presence masks."""
+    return EvolvingGraphPair(
+        base=_graph(base),
+        run1=_graph(run1),
+        run2=_graph(run2),
+        mask1=np.asarray(mask1, dtype=bool),
+        mask2=np.asarray(mask2, dtype=bool),
+    )
+
+
+__all__ = ["cache_state", "csr_graph", "demand_state", "evolving_pair"]

@@ -10,7 +10,7 @@ Encoded entry layout (bits):  8 (mode+count)  +  46 (base)  +  (n-1)*8*δ
 Raw entry layout:             8               +  n*46
 
 This module is the *bit-accounting and reference* implementation (numpy,
-exact round-trip); :mod:`repro_torch.kernels.basedelta` is the TPU Pallas version
+exact round-trip); :mod:`repro_torch.kernels.basedelta` is the CUDA version
 operating on fixed-width tiles.
 """
 from __future__ import annotations

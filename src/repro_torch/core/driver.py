@@ -23,8 +23,7 @@ Scoring lives in :mod:`repro_torch.core.experiment`.
 
 PyTorch port: the app and the cache simulation run on the device the
 caller names (``device=``, default the CUDA card); trace emission and the
-prefetchers are host numpy, as in the JAX package.  Only single-run
-kernels are ported so far; a two-run kernel raises ``NotImplementedError``.
+prefetchers are host numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,13 +35,13 @@ import numpy as np
 
 import torch
 
-from repro_torch.apps import get_kernel, has_kernel, kernel_traits, list_kernels
+from repro_torch.apps import get_kernel, has_kernel, kernel_traits, list_kernels, pick_root
 from repro_torch.apps.ligra import AppRun
 from repro_torch.apps.trace import T_ID, TraceConfig, trace_run
 from repro_torch.core.amc.api import AMCSession
 from repro_torch.core.amc.prefetcher import IterationView
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs import DATASETS, make_dataset
+from repro_torch.graphs import DATASETS, make_dataset, make_evolving_pair
 from repro_torch.memsim import (
     SCALED,
     DemandProfile,
@@ -209,16 +208,25 @@ def _nextline_stream(profile: DemandProfile):
     return b[keep] + 1, p[keep]
 
 
-def _run_app(kernel: str, dataset: str, device: torch.device) -> List[AppRun]:
+def _run_app(
+    kernel: str, dataset: str, seed: int, device: torch.device
+) -> List[AppRun]:
     """Run the kernel per its spec's protocol; returns the run list."""
     ks = get_kernel(kernel)
-    if ks.two_run:
-        raise NotImplementedError(
-            f"kernel {kernel!r} uses the two-run evolving protocol, which "
-            "the port does not have yet (graphs/evolve.py and the bfs/cc/bf "
-            "apps are still to be ported)"
-        )
     g = make_dataset(dataset, weighted=ks.weighted)
+    if ks.two_run:
+        pair = make_evolving_pair(g, seed=seed)
+        # Same root for both runs so the traversals correlate (the paper's
+        # BFS caveat: "if the parent node gets changed, the whole graph
+        # traversal changes").
+        root = (
+            pick_root(pair.run1, pair.mask1 & pair.mask2)
+            if ks.needs_root
+            else None
+        )
+        r1 = ks.run(pair.run1, present_mask=pair.mask1, root=root, device=device)
+        r2 = ks.run(pair.run2, present_mask=pair.mask2, root=root, device=device)
+        return [r1, r2]
     return [ks.run(g, device=device)]
 
 
@@ -299,7 +307,7 @@ def _build_workload(
     # per-iteration traits; registered kernels dispatch on their spec.
     ks = kernel_traits(kernel)
     t0 = time.perf_counter()
-    runs = runs if runs is not None else _run_app(kernel, dataset, dev)
+    runs = runs if runs is not None else _run_app(kernel, dataset, spec.seed, dev)
     t_app = time.perf_counter()
     if cfg_trace is None:
         # Shared layout across runs (same id space - evolve.py keeps it).

@@ -1,7 +1,8 @@
-"""Graph substrate: CSR graphs and the seeded synthetic generators (ported
-from ``repro.graphs``; the evolving-graph dynamics and partitioning come
-with the two-run kernels)."""
+"""Graph substrate: CSR graphs, the seeded synthetic generators and the
+§VI evolving pair (ported from ``repro.graphs``; partitioning comes with
+the sharded execution engine)."""
 from repro_torch.graphs.csr import CSRGraph, build_csr, from_edges
+from repro_torch.graphs.evolve import EvolvingGraphPair, make_evolving_pair
 from repro_torch.graphs.generators import (
     DATASETS,
     make_dataset,
@@ -12,11 +13,13 @@ from repro_torch.graphs.generators import (
 
 __all__ = [
     "CSRGraph",
+    "EvolvingGraphPair",
     "build_csr",
     "from_edges",
     "rmat_graph",
     "powerlaw_graph",
     "road_graph",
     "make_dataset",
+    "make_evolving_pair",
     "DATASETS",
 ]

@@ -91,12 +91,17 @@ def ptxas_report(source: Path) -> List[str]:
 
 
 def load(source: Path) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if needed."""
-    source = Path(source).resolve()
+    """The loaded library of ``source``, built first if needed.
+
+    Keyed by ``source`` as given (each wrapper passes its module's
+    ``SOURCE``), so a launch does no file-system call: resolving the path
+    stats every component, which on a host with slow file-system calls
+    takes longer than a short kernel runs."""
     lib = _LIBS.get(source)
     if lib is None:
-        build([source])
-        lib = _LIBS[source] = ctypes.CDLL(str(library_path(source)))
+        path = Path(source).resolve()
+        build([path])
+        lib = _LIBS[source] = ctypes.CDLL(str(library_path(path)))
     return lib
 
 

@@ -6,9 +6,10 @@ installed::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-It builds K1 (``lru_hits``), K2 (``fused_levels``) and the ordered segment
-sum with ``nvcc`` and holds each against its plain PyTorch version bit for
-bit, on the families ``chip_smoke.py`` uses.
+It builds K1 (``lru_hits``), K2 (``fused_levels``), the ordered segment
+sum, K3 (the BaseΔ tile kernels) and K4 (the AMC gather kernels) with
+``nvcc`` and holds each against its plain PyTorch version bit for bit, on
+the families ``chip_smoke.py`` uses.
 """
 import os
 import sys
@@ -29,3 +30,15 @@ def test_kernels_match_plain_on_the_card():
     assert chip_smoke.k1_families(dev) == 0
     assert chip_smoke.k2_families(dev) == 0
     assert chip_smoke.segment_sum_check(dev) == 0
+
+
+@pytest.mark.cuda
+def test_recorded_stream_kernels_match_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    dev = torch.device("cuda", 0)
+    assert chip_smoke.k3_families(dev) == 0
+    assert chip_smoke.k4_families(dev) == 0

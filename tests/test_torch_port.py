@@ -66,18 +66,34 @@ def test_amc_iteration_views_equal(tiny_workloads):
 
 
 def test_two_run_kernels_are_not_ported_yet():
-    from repro_torch.apps import registry
+    """The two-run protocol is ported now (the name is kept from the slice
+    that refused it): a registered two-run kernel runs twice, on the §VI
+    pair's run 1 and run 2 with their presence masks and one shared root,
+    and the evaluation window starts at run 2."""
+    from repro_torch.apps import bfs, pick_root, registry
     from repro_torch.core.driver import WorkloadSpec
+    from repro_torch.graphs import make_dataset, make_evolving_pair
 
-    @registry.register_kernel("two_run_probe", epoch_protocol="per_run")
-    def probe(graph, **kw):  # pragma: no cover - never reached
-        raise AssertionError
+    calls = []
+
+    @registry.register_kernel(
+        "two_run_probe", epoch_protocol="per_run", needs_root=True
+    )
+    def probe(graph, present_mask=None, root=None, device=None):
+        calls.append((graph.name, present_mask, root))
+        return bfs(graph, root=root, present_mask=present_mask, device=device)
 
     try:
-        with pytest.raises(NotImplementedError, match="two-run"):
-            WorkloadSpec("two_run_probe", "tiny").build(device="cpu")
+        wl = WorkloadSpec("two_run_probe", "tiny", seed=2).build(device="cpu")
     finally:
         del registry._REGISTRY["two_run_probe"]
+    pair = make_evolving_pair(make_dataset("tiny"), seed=2)
+    root = pick_root(pair.run1, pair.mask1 & pair.mask2)
+    assert [(name, r) for name, _, r in calls] == [("tiny@run1", root), ("tiny@run2", root)]
+    np.testing.assert_array_equal(calls[0][1], pair.mask1)
+    np.testing.assert_array_equal(calls[1][1], pair.mask2)
+    first_run2 = [e for e, _ in wl.iter_epochs].index(1)
+    assert wl.eval_from_pos == int(np.searchsorted(wl.iter_id, first_run2)) > 0
 
 
 # ------------------------------------------------------------------ guards
