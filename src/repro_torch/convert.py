@@ -1,14 +1,19 @@
-"""Build the port's carried state and graphs from plain numpy arrays.
+"""Build the port's carried state, graphs and models from plain numpy
+arrays.
 
 The JAX package hands its :class:`CacheState` carries, demand-simulation
-carries, CSR graphs and evolving pairs out as numpy arrays; these functions
-turn such arrays into the port's objects, so a pass of the port can resume
-exactly where a pass of the JAX package stopped (the cross-package shard
-seam), and the port's apps can run on a pair the JAX package made.
+carries, CSR graphs, evolving pairs and model parameters out as numpy
+arrays; these functions turn such arrays into the port's objects, so a pass
+of the port can resume exactly where a pass of the JAX package stopped (the
+cross-package shard seam), the port's apps can run on a pair the JAX
+package made, and the port's model can run the JAX package's weights.
+``random_lm_tree`` draws a parameter tree of the JAX package's layout from
+a numpy seed, for runs that hold the two packages' models against each
+other where JAX is not installed.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +23,7 @@ from repro_torch.graphs.csr import CSRGraph
 from repro_torch.graphs.evolve import EvolvingGraphPair
 from repro_torch.memsim.engine import CacheState
 from repro_torch.memsim.hierarchy import DemandState
+from repro_torch.models.model import LM
 
 
 def cache_state(tags: np.ndarray, age: np.ndarray, device: DeviceLike = None) -> CacheState:
@@ -81,4 +87,90 @@ def evolving_pair(base, run1, run2, mask1: np.ndarray, mask2: np.ndarray) -> Evo
     )
 
 
-__all__ = ["cache_state", "csr_graph", "demand_state", "evolving_pair"]
+def _leaf(tree: Dict[str, Any], name: str) -> np.ndarray:
+    """The JAX pytree leaf of a port parameter name: ``blocks.<i>.a.b`` is
+    ``tree["blocks"]["a"]["b"][i]`` (layers stacked on axis 0); any other
+    ``a.b`` is ``tree["a"]["b"]``."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        node = tree["blocks"]
+        for key in parts[2:]:
+            node = node[key]
+        return np.asarray(node)[int(parts[1])]
+    node = tree
+    for key in parts:
+        node = node[key]
+    return np.asarray(node)
+
+
+def lm_params_from_numpy(cfg, tree: Dict[str, Any], device: DeviceLike = None) -> LM:
+    """The port's model holding a JAX parameter pytree with numpy leaves
+    (``np.asarray`` of ``repro.models.init_params``'s), name for name, in
+    ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    model = LM(cfg, device=dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = _leaf(tree, name)
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: tree leaf {leaf.shape} != parameter {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(leaf, dtype=np.float32)).to(dev))
+    return model
+
+
+def lm_tree_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """Path -> shape of every leaf of the JAX package's parameter pytree of
+    ``cfg`` (layers stacked on axis 0), from the port's module tree."""
+    model = LM(cfg, device="meta")
+    shapes: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            shapes[("blocks", *parts[2:])] = (cfg.num_layers, *p.shape)
+        else:
+            shapes[tuple(parts)] = tuple(p.shape)
+    return shapes
+
+
+def random_lm_tree(cfg, seed: int) -> Dict[str, Any]:
+    """A float32 parameter pytree of the JAX package's layout drawn from
+    ``numpy.random.default_rng(seed)``, leaf by leaf in sorted path order:
+
+    - norms (``ln*``, ``norm``, ``final_norm``, ``qn``, ``kn``):
+      ``1 + 0.1 N(0, 1)``;
+    - ``a_log``: ``log U(0.6, 1.2)`` (decay rates a in [-1.2, -0.6]);
+    - ``d_skip``: ``U(0.5, 1.5)``; ``dt_bias``: ``0.1 N(0, 1)``;
+    - every matrix: ``N(0, 1 / fan_in)``, fan_in the model width for
+      ``embed`` and ``lm_head`` and the input axis for the others.
+    """
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, Any] = {}
+    for path, shape in sorted(lm_tree_shapes(cfg).items()):
+        leaf = path[-1]
+        if leaf.startswith("ln") or leaf in ("norm", "final_norm", "qn", "kn"):
+            x = 1.0 + 0.1 * rng.normal(size=shape)
+        elif leaf == "a_log":
+            x = np.log(rng.uniform(0.6, 1.2, size=shape))
+        elif leaf == "d_skip":
+            x = rng.uniform(0.5, 1.5, size=shape)
+        elif leaf == "dt_bias":
+            x = 0.1 * rng.normal(size=shape)
+        else:
+            fan_in = shape[-1] if leaf in ("embed", "lm_head") else shape[-2]
+            x = rng.normal(size=shape) / np.sqrt(fan_in)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf] = x.astype(np.float32)
+    return tree
+
+
+__all__ = [
+    "cache_state",
+    "csr_graph",
+    "demand_state",
+    "evolving_pair",
+    "lm_params_from_numpy",
+    "lm_tree_shapes",
+    "random_lm_tree",
+]
