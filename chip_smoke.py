@@ -6,12 +6,17 @@
 Phases (any failure exits non-zero; each prints its seconds):
 
 1. Build every CUDA kernel from ``src/repro_torch`` (one ``nvcc`` per
-   source, all at once) and print the ``ptxas`` register and spill lines.
+   source, all at once) and print the ``ptxas`` register and spill lines;
+   K5's bfloat16 (tensor-core) kernel at hd 64 must not spill.
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit, on randomized families (K1 ``lru_hits``, K2 ``fused_levels``, K3a /
    K3b ``basedelta_*_tiles``, K4a ``amc_gather``) and against the plain
    version on the CPU where the card's ``index_add_`` adds in another order
-   (the ordered segment sum, K4b ``amc_gather_segment_sum``).
+   (the ordered segment sum, K4b ``amc_gather_segment_sum``, whose families
+   include path E's skew, rows of several vectors a lane, a misaligned
+   table and out-of-range indices); K5 and K6 within stated tolerances
+   (K5's bfloat16 families include cancelling value pairs, where one
+   bfloat16 rounding of P would show).
 3. Main path A: ``build_workload("pgd", "comdblp")`` under ``SCALED`` on
    the card, then ``score_prefetchers_batched`` with ``amc`` and ``vldp``.
 4. Main path B: the same for pgd/google under ``PAPER`` (the paper's Table
@@ -37,7 +42,8 @@ Phases (any failure exits non-zero; each prints its seconds):
    back.
 10. Main path E: ``amc_gather_segment_sum`` (K4b) of a (110,000 x 128)
     float32 vertex table along run 2 of D; then K3 and K4 timed at these
-    shapes as phase 6 times the others.
+    shapes as phase 6 times the others (K4b beside ``embedding_bag`` in the
+    same call).
 11. The reduced zamba2 (4 layers, and 5 so the tail runs) in float32 with
     parameters from ``convert.random_lm_tree``: ``prefill_step`` and 8
     ``serve_step``s against ``tests/data/torch_port_golden_lm.json``
@@ -52,8 +58,9 @@ Phases (any failure exits non-zero; each prints its seconds):
     same 512 tokens decoded one by one, beside the same prefill through the
     plain versions of K5 and K6 (``repro_torch.launch.drift``); then K5 and
     K6 timed at the prefill's shapes beside their plain versions, their
-    bounds and (K5) ``scaled_dot_product_attention``.  K5 and K6 are also
-    held against their plain versions in phase 2.
+    bounds and (K5) ``scaled_dot_product_attention`` with K5's TFLOP/s, and
+    K5's float32 route at the cross-check's shape beside SDPA in float32.
+    K5 and K6 are also held against their plain versions in phase 2.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
 bfs_do, the gather demo, K3 on D's entries, E, the reduced LMs, F's
@@ -437,6 +444,16 @@ def k4_families(dev):
         ids = np.flatnonzero(keep) if keep.any() else np.arange(1)
         return torch.from_numpy(np.sort(rng.choice(ids, n)).astype(np.int32)).to(dev)
 
+    deg = rng.integers(1, 5, 20000)  # segment 10,000 holds 5,000 rows
+    skewed = torch.from_numpy(np.repeat(np.arange(20001), np.insert(deg, 10000, 5000))
+                              .astype(np.int32)).to(dev)
+    misaligned = table(3001, 128, f32).flatten()[1:1 + 3000 * 128].view(3000, 128)
+    out_of_range_segs = segs(3000, 50, 0.0)
+    ix = rng.integers(0, 500, 3000)
+    in7 = (out_of_range_segs == 7).cpu().numpy()
+    ix[in7] = np.where(rng.random(int(in7.sum())) < 0.5, -1 - ix[in7], 500 + ix[in7])
+    out_of_range = torch.from_numpy(ix.astype(np.int32)).to(dev)
+    check(bool(in7.any()), "K4b families: segment 7 is empty")
     sums = [
         ("N=0, all segments empty", table(40, 16, f32), idx(0, 40), segs(0, 7, 0.0), 7),
         ("f32 D=128, empty segments", table(3000, 128, f32), idx(30000, 3000),
@@ -447,10 +464,21 @@ def k4_families(dev):
         ("bf16 D=128, empty segments", table(2000, 128, bf16), idx(10000, 2000),
          segs(10000, 3000, 0.3), 3000),
         ("bf16 D=3", table(100, 3, bf16), idx(2000, 100), segs(2000, 90, 0.1), 90),
+        ("path E's skew: one segment of 5,000 rows among 20,000 of 1-4",
+         table(20000, 128, f32), idx(5000 + deg.sum(), 20000), skewed, 20001),
+        ("f32 D=256 (two vectors a lane)", table(3000, 256, f32), idx(20000, 3000),
+         segs(20000, 4000, 0.2), 4000),
+        ("bf16 D=64 (8 lanes of 32)", table(3000, 64, bf16), idx(20000, 3000),
+         segs(20000, 4000, 0.2), 4000),
+        ("f32 D=128, table view 4 bytes past 16-byte alignment", misaligned,
+         idx(10000, 3000), segs(10000, 2000, 0.2), 2000),
+        ("segment 7's every index out of range", table(500, 128, f32), out_of_range,
+         out_of_range_segs, 50),
     ]
     for name, tab, ix, sg, ns in sums:
         got = amc_gather_segment_sum(tab, ix, sg, ns).cpu()
-        ref = amc_gather_segment_sum_plain(tab.cpu(), ix.cpu(), sg.cpu(), ns)
+        keep = ((ix >= 0) & (ix < tab.shape[0])).cpu()  # the kernel adds nothing for the rest
+        ref = amc_gather_segment_sum_plain(tab.cpu(), ix.cpu()[keep], sg.cpu()[keep], ns)
         e = max_err([got], [ref])
         check(e == 0, f"K4b {name}: kernel != plain on the CPU (max err {e})")
         err = max(err, e)
@@ -484,14 +512,21 @@ def close(got, ref, rtol, atol, what):
     return float(err.max()) if err.numel() else 0.0
 
 
-def k5_inputs(rng, b, sq, skv, h, kv, hd, dtype, dev):
+def k5_inputs(rng, b, sq, skv, h, kv, hd, dtype, dev, cancelling=False):
+    """Normal q, k, v; with ``cancelling``, key rows in pairs (the second
+    1.05 times the first) with values +v and -v of size ~16, so that each
+    output is a small difference of large terms and one bfloat16 rounding of
+    P would show (``tests/test_torch_flash_attn_tc.py``)."""
     import numpy as np
     import torch
 
-    def t(*shape):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype).to(dev)
-
-    return t(b, sq, h, hd), t(b, skv, kv, hd), t(b, skv, kv, hd)
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
+    if cancelling:
+        k[:, 1::2] = k[:, 0::2][:, :k[:, 1::2].shape[1]] * 1.05
+        v *= 16
+        v[:, 1::2] = -v[:, 0::2][:, :v[:, 1::2].shape[1]]
+    return tuple(torch.from_numpy(a).to(dtype).to(dev) for a in (q, k, v))
 
 
 def k5_families(dev):
@@ -515,17 +550,36 @@ def k5_families(dev):
         ("window 10 (all-masked first tiles)", 1, 500, 500, 4, 4, 64, True, 10, 0),
         ("non-causal window 50", 1, 300, 300, 2, 1, 128, False, 50, 0),
         ("zamba2 heads, S 1024", 1, 1024, 1024, 32, 32, 64, True, 0, 0),
+        ("cancelling pairs, causal GQA hd 64", 2, 256, 256, 4, 2, 64, True, 0, 0),
+        ("cancelling pairs, hd 128 window 128", 1, 300, 300, 2, 2, 128, True, 128, 0),
+        ("cancelling pairs, hd 32 non-causal", 1, 130, 130, 4, 4, 32, False, 0, 0),
+        ("zamba2 heads, S 4096", 1, 4096, 4096, 32, 32, 64, True, 0, 0),
+        ("hd 128 window 128, S 1000", 2, 1000, 1000, 4, 4, 128, True, 128, 0),
+        ("GQA 4, q_offset 300 into 700 keys", 2, 400, 700, 8, 2, 64, True, 0, 300),
     ]
     err, n = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         for name, b, sq, skv, h, kv, hd, causal, win, qoff in cases:
-            q, k, v = k5_inputs(rng, b, sq, skv, h, kv, hd, dtype, dev)
+            cancelling = name.startswith("cancelling")
+            if cancelling and dtype != torch.bfloat16:
+                continue  # they test the bfloat16 route's split of P
+            q, k, v = k5_inputs(rng, b, sq, skv, h, kv, hd, dtype, dev, cancelling)
             got = flash_attention(q, k, v, causal=causal, sliding_window=win, q_offset=qoff)
             ref = blocked_attention_plain(q, k, v, causal, win, qoff)
             check(got.shape == ref.shape and got.dtype == ref.dtype, f"K5 {name}: shape/dtype")
             err = max(err, close(got, ref, what=f"K5 {name} {dtype}", **tol))
             n += 1
+    # bf16 views 2 bytes past 16-byte alignment: the wrapper copies them for
+    # the kernel's 16-byte cp.async
+    q, k, v = k5_inputs(rng, 2, 200, 200, 4, 2, 64, torch.bfloat16, dev)
+    q, k, v = (torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape).copy_(t)
+               for t in (q, k, v))
+    check(q.data_ptr() % 16 != 0, "K5 misaligned family: view is aligned")
+    got = flash_attention(q, k, v, causal=True)
+    err = max(err, close(got, blocked_attention_plain(q, k, v, True),
+                         what="K5 misaligned bf16 views", **ATTN_TOL["bfloat16"]))
+    n += 1
     log(f"  K5 flash_attention == plain on {n} families (float32 rtol 1e-4 atol 1e-5, "
         f"bfloat16 rtol 1e-2 atol 1e-3), max abs err {err:.3g}")
     return err
@@ -763,10 +817,12 @@ def time_kernels(wl, dev, errs, launches):
         replaces="src/repro/apps/pagerank_delta.py:59 (jax.ops.segment_sum; not a Pallas kernel)",
         launches=launches["segment_sum"], max_abs_err=errs["segment_sum"],
         matches_plain=errs["segment_sum"] == 0,
-        ms=ms3, host_us=host3, plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=plain3,
+        # index_add_ on the card adds with atomics, in no fixed order: it is
+        # the plain version's time, not a library call for the same function
+        ms=ms3, host_us=host3, plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=None,
         shape=f"{e} edges into {graph.num_vertices} segments",
     ))
-    log(f"  segment_sum: {ms3:.4f} ms (index_add_ {plain3:.4f} ms, bound {b3:.5f} ms)")
+    log(f"  segment_sum: {ms3:.4f} ms (index_add_, atomic, {plain3:.4f} ms, bound {b3:.5f} ms)")
     return out
 
 
@@ -1004,7 +1060,8 @@ def time_recorded_stream_kernels(table, idx, seg, num_segments, tables, dev, err
                     bound_ms=b, bound_by=by, library_ms=lib,
                     shape=f"({v} x {d}) float32 table, {n} indices into {num_segments} segments"))
     log(f"  amc_gather_segment_sum: {ms:.4f} ms (plain on the card {plain:.4f} ms, "
-        f"embedding_bag {lib:.4f} ms, bound {b:.4f} ms)")
+        f"embedding_bag {lib:.4f} ms, bound {b:.4f} ms); {ms / lib:.2f} x embedding_bag's "
+        f"time in this call")
 
     # K3a / K3b: every entry AMC recorded over path D, one (E, 32) tile set
     packed = [pack_ragged(t.miss_blocks, t.miss_offsets) for t in tables]
@@ -1268,17 +1325,21 @@ def time_lm_kernels(keep, dev, errs, launches):
     lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, **gqa), dev, reps=10)
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)  # no window on this path
-    bnd, by = bound(4 * q.numel() * q.element_size(), 4 * hd * pairs, BF16_OPS_PER_S)
+    flop = 4 * hd * pairs
+    bnd, by = bound(4 * q.numel() * q.element_size(), flop, BF16_OPS_PER_S)
+    f32 = time_k5_float32(b, h, hd, dev)
     out.append(dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
                     replaces="src/repro/kernels/flash_attn/flash_attn.py:70",
                     launches=launches["flash_attention"], max_abs_err=errs["flash_attention"],
                     path_f_max_abs_err=e_attn, ms=ms, host_us=host, plain_ms=plain,
-                    bound_ms=bnd, bound_by=by, library_ms=lib,
+                    bound_ms=bnd, bound_by=by, library_ms=lib, tflops=flop / ms * 1e-9,
+                    float32_route=f32,
                     shape=f"q, k, v ({b}, {s}, {h}, {hd}) {str(q.dtype)[6:]}, causal"))
     log(f"  flash_attention: {ms:.3f} ms (plain {plain:.3f} ms, SDPA {lib:.3f} ms, "
-        f"bound {bnd:.4f} ms by {by}); max abs err against the plain version here "
-        f"{e_attn:.3g} (output rms {float(ref.float().pow(2).mean().sqrt()):.3g})")
+        f"bound {bnd:.4f} ms by {by}); {flop / ms * 1e-9:.1f} TFLOP/s, "
+        f"{ms / lib:.2f} x SDPA's time in this call; max abs err against the plain version "
+        f"here {e_attn:.3g} (output rms {float(ref.float().pow(2).mean().sqrt()):.3g})")
 
     (x, dt, a, bm, cm), kw = keep["ssd_scan"]
     chunk = kw["chunk"]
@@ -1312,6 +1373,31 @@ def time_lm_kernels(keep, dev, errs, launches):
         f"err against the plain version here {e_ssd:.3g} (y rms "
         f"{float(ref[0].float().pow(2).mean().sqrt()):.3g})")
     return out
+
+
+def time_k5_float32(b, h, hd, dev):
+    """K5's float32 route at the cross-check's attention shape ((b, 512, h,
+    hd), causal, random inputs from a seed), held against its plain version
+    and timed beside SDPA in float32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attn.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
+
+    s = PATH_F_PROMPT
+    q, k, v = k5_inputs(np.random.default_rng(8), b, s, s, h, h, hd, torch.float32, dev)
+    run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    ms = cuda_ms(run, dev, reps=10)
+    err = close(run(), blocked_attention_plain(q, k, v, True), what="K5 float32 route",
+                **ATTN_TOL["float32"])
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), dev, reps=10)
+    log(f"  flash_attention float32 route at ({b}, {s}, {h}, {hd}), causal: {ms:.3f} ms "
+        f"(SDPA in float32 {lib:.3f} ms), max abs err against the plain version {err:.3g}")
+    return dict(shape=f"({b}, {s}, {h}, {hd}) float32, causal", ms=ms, library_ms=lib,
+                max_abs_err=err)
 
 
 def profile_share(what, fn, dev):
@@ -1401,6 +1487,22 @@ def path_f(dev, run_path, errs, totals):
 # ------------------------------------------------------------ main
 
 
+def k5_bf16_spills(report) -> int:
+    """Spill bytes ``ptxas`` reported for ``flash_attn_tc_kernel<64>``
+    (its report follows the line that names the entry)."""
+    import re
+
+    spills, inside = None, False
+    for line in report:
+        if "Compiling entry" in line:
+            inside = "flash_attn_tc_kernel" in line and "ILi64E" in line
+        elif inside and "spill" in line:
+            spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            inside = False
+    check(spills is not None, "no ptxas report for K5's bfloat16 kernel at hd 64")
+    return spills
+
+
 def gpu_line() -> str:
     r = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1485,6 +1587,9 @@ def main() -> int:
     for src in sources:
         for line in build.ptxas_report(src):
             log(f"  [{src.name}] {line}")
+    spills = k5_bf16_spills(build.ptxas_report(fa_mod.SOURCE))
+    log(f"  K5 bfloat16 route at hd 64: {spills} bytes of spill stores and loads")
+    check(spills == 0, f"K5's bfloat16 route spills {spills} bytes at hd 64")
 
     phase("phase 2: kernels vs plain on the card")
     k3_err, k4_err = k3_families(dev), k4_families(dev)

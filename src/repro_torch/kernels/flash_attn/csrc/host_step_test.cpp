@@ -1,14 +1,26 @@
 // Host harness of flash_attn_step.h, for the CPU tests only.
 //
-// Walks the same (batch x head, 64-row query block, KV tile) structure as
-// flash_attn.cu, with the same tile skipping, and runs the header's
-// per-row functions with one "thread" owning all of a row's dimensions, so
+// host_flash_attn: the float32 route.  Walks the same (batch x head,
+// 64-row query block, KV tile) structure as flash_attn.cu's scalar kernel,
+// with the same tile skipping, and runs the header's per-row functions with one "thread" owning all of a row's dimensions, so
 // a g++ build of this file checks the GPU's step logic against the plain
 // PyTorch version and the JAX package.  Inputs are float32 (bfloat16 values
 // when is_bf16); the output is the float32 value before the cast to the
-// input dtype.  The port itself never loads this build.
+// input dtype.
+//
+// host_flash_attn_tc: the bfloat16 tensor-core route, one 16-row strip at a
+// time with a warp's 32 lanes emulated on the host, in the kernel's query
+// blocks (FA_TC_STRIPS) and tile order.  Tiles are laid out in shared-memory images with
+// the kernel's swizzle, ldmatrix is emulated from the lanes' row
+// addresses (fa_ldm_q / _k / _v), each mma.sync is a plain loop over the
+// PTX fragment layout (fa_a_*, fa_b_*, fa_c_*), and the shuffles are
+// butterflies over the emulated lanes; masks, softmax step, P's hi / lo
+// split and the output staging are the header's.  With split = 0, lo is
+// dropped (one bf16 rounding of P), for the tests that show what the split
+// is for.  The port itself never loads this build.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libflash_attn_host.so host_step_test.cpp
+#include <set>
 #include <vector>
 
 #include "flash_attn_step.h"
@@ -55,3 +67,255 @@ extern "C" int host_flash_attn(const float* q, const float* k, const float* v,
     }
   return 0;
 }
+
+namespace {
+
+constexpr int kBK = 64, kWarps = 4, kNT = kBK / 8;
+
+// One ldmatrix.x4 from a tile image: lanes 8 m .. 8 m + 7 address matrix
+// m's rows; lane l receives, in register m, the elements (l / 4, 2 (l % 4))
+// and (l / 4, 2 (l % 4) + 1) of matrix m, or of its transpose with `trans`.
+// addr(lane, &row, &col) gives a lane's row segment.
+template <typename Addr>
+void ldmatrix_x4(const std::vector<float>& tile, int hd, bool trans, Addr addr,
+                 float frag[32][4][2]) {
+  int row[32], col[32];
+  for (int l = 0; l < 32; ++l) addr(l, &row[l], &col[l]);
+  for (int l = 0; l < 32; ++l)
+    for (int m = 0; m < 4; ++m)
+      for (int e = 0; e < 2; ++e) {
+        int r = l / 4, c = 2 * (l % 4) + e;
+        if (trans) std::swap(r, c);
+        const int src = 8 * m + r;  // the lane that addressed this row
+        frag[l][m][e] = tile[fa_smem_off(row[src], col[src] + c, hd)];
+      }
+}
+
+// c += a b for one m16n8k16 tile held as fragments: a[lane][reg][half]
+// (registers a0..a3), b[lane][reg][half] (b0, b1), c[lane][i].
+void mma(float c[32][4], const float a[32][4][2], const float b[32][2][2]) {
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    for (int i = 0; i < 8; ++i) A[fa_a_row(l, i)][fa_a_col(l, i)] = a[l][i / 2][i % 2];
+    for (int i = 0; i < 4; ++i) B[fa_b_k(l, i)][fa_b_n(l, i)] = b[l][i / 2][i % 2];
+  }
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 4; ++i) {
+      float sum = c[l][i];
+      for (int kk = 0; kk < 16; ++kk) sum += A[fa_c_row(l, i)][kk] * B[kk][fa_c_col(l, i)];
+      c[l][i] = sum;
+    }
+}
+
+void unpack(const uint32_t r[4], float out[4][2]) {
+  for (int i = 0; i < 4; ++i) {
+    out[i][0] = fa_unpack_lo(r[i]);
+    out[i][1] = fa_unpack_hi(r[i]);
+  }
+}
+
+}  // namespace
+
+// q, k, v hold bfloat16 values as float32; o receives the bf16 output as
+// float32.  Returns 0, or 1 on a bad argument, 2 if the tile order is not a
+// permutation of the query tiles.
+extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v, float* o,
+                                  int64_t b, int64_t sq, int64_t skv, int h, int kvh, int hd,
+                                  float scale, int causal, int64_t window, int64_t q_offset,
+                                  int split) {
+  if (kvh <= 0 || h % kvh != 0 || (hd != 32 && hd != 64 && hd != 128)) return 1;
+  const int KS = hd / 16, DT = hd / 8, MS = FA_TC_STRIPS(hd), kBQ = 16 * MS * kWarps;
+  const int64_t ntiles = (sq + kBQ - 1) / kBQ;
+  std::vector<float> qs(kBQ * hd), ks(kBK * hd), vs(kBK * hd);
+  auto fill = [&](std::vector<float>& tile, const float* base, int64_t stride, int64_t pos0,
+                  int64_t limit, int rows) {
+    for (int r = 0; r < rows; ++r)
+      for (int c = 0; c < hd; ++c)
+        tile[fa_smem_off(r, c, hd)] = pos0 + r < limit ? base[(pos0 + r) * stride + c] : 0.0f;
+  };
+  for (int64_t bi = 0; bi < b; ++bi)
+    for (int head = 0; head < h; ++head) {
+      const int kv_head = head / (h / kvh);
+      const float* qbase = q + (bi * sq * h + head) * hd;
+      const float* kbase = k + (bi * skv * kvh + kv_head) * hd;
+      const float* vbase = v + (bi * skv * kvh + kv_head) * hd;
+      std::set<int64_t> seen;
+      for (int64_t blk = 0; blk < ntiles; ++blk) {
+        const int64_t qt = fa_tile_order(blk, ntiles);
+        if (qt < 0 || qt >= ntiles || !seen.insert(qt).second) return 2;
+        const int64_t q0 = qt * kBQ;
+        fill(qs, qbase, (int64_t)h * hd, q0, sq, kBQ);
+        int64_t t_lo, t_hi;
+        fa_kv_tiles(q0, kBQ, q_offset, skv, causal, window, kBK, &t_lo, &t_hi);
+        // each 16-row strip on its own: the kernel runs a warp's strips
+        // side by side, with the same arithmetic for each
+        for (int strip = 0; strip < kWarps * MS; ++strip) {
+          const int row0 = 16 * strip;
+          std::vector<float> qf(32 * KS * 8), acc(32 * DT * 4, 0.0f);
+          for (int kk = 0; kk < KS; ++kk) {
+            float f[32][4][2];
+            ldmatrix_x4(qs, hd, false,
+                        [&](int l, int* r, int* c) { fa_ldm_q(l, row0, kk, r, c); }, f);
+            for (int l = 0; l < 32; ++l)
+              for (int i = 0; i < 8; ++i)
+                qf[(l * KS + kk) * 8 + i] = fa_scale_q(f[l][i / 2][i % 2], scale, 1);
+          }
+          float m[32][2], lpart[32][2];
+          for (int l = 0; l < 32; ++l) {
+            m[l][0] = m[l][1] = FA_NEG_INF;
+            lpart[l][0] = lpart[l][1] = 0.0f;
+          }
+          const int64_t qpos_strip = q_offset + q0 + row0;
+          for (int64_t t = t_lo; t < t_hi; ++t) {
+            fill(ks, kbase, (int64_t)kvh * hd, t * kBK, skv, kBK);
+            fill(vs, vbase, (int64_t)kvh * hd, t * kBK, skv, kBK);
+            float s[32][kNT * 4] = {};
+            for (int kk = 0; kk < KS; ++kk)
+              for (int np = 0; np < kNT / 2; ++np) {
+                float kb[32][4][2], a[32][4][2], b0[32][2][2], b1[32][2][2];
+                ldmatrix_x4(ks, hd, false,
+                            [&](int l, int* r, int* c) { fa_ldm_k(l, np, kk, r, c); }, kb);
+                float c0[32][4], c1[32][4];
+                for (int l = 0; l < 32; ++l) {
+                  for (int i = 0; i < 8; ++i) a[l][i / 2][i % 2] = qf[(l * KS + kk) * 8 + i];
+                  for (int e = 0; e < 2; ++e)
+                    for (int r = 0; r < 2; ++r) {
+                      b0[l][r][e] = kb[l][r][e];
+                      b1[l][r][e] = kb[l][2 + r][e];
+                    }
+                  for (int i = 0; i < 4; ++i) {
+                    c0[l][i] = s[l][8 * np + i];
+                    c1[l][i] = s[l][8 * np + 4 + i];
+                  }
+                }
+                mma(c0, a, b0);
+                mma(c1, a, b1);
+                for (int l = 0; l < 32; ++l)
+                  for (int i = 0; i < 4; ++i) {
+                    s[l][8 * np + i] = c0[l][i];
+                    s[l][8 * np + 4 + i] = c1[l][i];
+                  }
+              }
+            const int64_t kpos0 = t * kBK;
+            if (fa_tile_needs_mask(qpos_strip, 16, kpos0, kBK, skv, causal, window))
+              for (int l = 0; l < 32; ++l)
+                fa_frag_mask<kNT>(s[l], l, qpos_strip, kpos0, skv, causal, window);
+            float mx[32][2], corr[32][2];
+            for (int l = 0; l < 32; ++l) fa_frag_rowmax<kNT>(s[l], mx[l]);
+            for (int x = 1; x <= 2; x *= 2) {  // __shfl_xor_sync butterflies
+              float prev[32][2];
+              memcpy(prev, mx, sizeof(prev));
+              for (int l = 0; l < 32; ++l)
+                for (int r = 0; r < 2; ++r)
+                  mx[l][r] = prev[l][r] > prev[l ^ x][r] ? prev[l][r] : prev[l ^ x][r];
+            }
+            for (int l = 0; l < 32; ++l) {
+              fa_frag_update<kNT>(s[l], m[l], mx[l], lpart[l], corr[l]);
+              for (int d = 0; d < DT; ++d)
+                for (int i = 0; i < 4; ++i) acc[(l * DT + d) * 4 + i] *= corr[l][i / 2];
+            }
+            for (int j = 0; j < kNT / 2; ++j) {
+              float ahi[32][4][2], alo[32][4][2];
+              for (int l = 0; l < 32; ++l) {
+                uint32_t rh[4], rl[4];
+                fa_p_fragments(&s[l][8 * j], &s[l][8 * j + 4], rh, rl);
+                unpack(rh, ahi[l]);
+                unpack(rl, alo[l]);
+                if (!split)
+                  for (int r = 0; r < 4; ++r) alo[l][r][0] = alo[l][r][1] = 0.0f;
+              }
+              for (int dp = 0; dp < DT / 2; ++dp) {
+                float vb[32][4][2];
+                ldmatrix_x4(vs, hd, true,
+                            [&](int l, int* r, int* c) { fa_ldm_v(l, j, dp, r, c); }, vb);
+                for (int half = 0; half < 2; ++half) {
+                  float bb[32][2][2], c[32][4];
+                  const int d = 2 * dp + half;
+                  for (int l = 0; l < 32; ++l) {
+                    for (int r = 0; r < 2; ++r)
+                      for (int e = 0; e < 2; ++e) bb[l][r][e] = vb[l][2 * half + r][e];
+                    for (int i = 0; i < 4; ++i) c[l][i] = acc[(l * DT + d) * 4 + i];
+                  }
+                  mma(c, ahi, bb);
+                  mma(c, alo, bb);
+                  for (int l = 0; l < 32; ++l)
+                    for (int i = 0; i < 4; ++i) acc[(l * DT + d) * 4 + i] = c[l][i];
+                }
+              }
+            }
+          }
+          // l over the 4 lanes of a row, then the output staged in the Q
+          // tile image as the kernel stages it, and copied out.
+          float l4[32][2];
+          memcpy(l4, lpart, sizeof(l4));
+          for (int x = 1; x <= 2; x *= 2) {
+            float prev[32][2];
+            memcpy(prev, l4, sizeof(prev));
+            for (int l = 0; l < 32; ++l)
+              for (int r = 0; r < 2; ++r) l4[l][r] = prev[l][r] + prev[l ^ x][r];
+          }
+          for (int l = 0; l < 32; ++l)
+            for (int d = 0; d < DT; ++d)
+              for (int i = 0; i < 4; ++i) {
+                const int row = row0 + fa_c_row(l, i), col = 8 * d + fa_c_col(l, i);
+                qs[fa_smem_off(row, col, hd)] =
+                    fa_round_bf16(fa_finish(acc[(l * DT + d) * 4 + i], l4[l][i / 2]));
+              }
+          for (int r = row0; r < row0 + 16; ++r)
+            if (q0 + r < sq)
+              for (int c = 0; c < hd; ++c)
+                o[((bi * sq + q0 + r) * h + head) * hd + c] = qs[fa_smem_off(r, c, hd)];
+        }
+      }
+      if ((int64_t)seen.size() != ntiles) return 2;
+    }
+  return 0;
+}
+
+// The header's small functions, one by one, for the tests of their
+// contracts.
+extern "C" void host_split_bf16(const float* p, float* hi, float* lo, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) fa_split_bf16(p[i], &hi[i], &lo[i]);
+}
+
+extern "C" int64_t host_tile_order(int64_t i, int64_t n) { return fa_tile_order(i, n); }
+
+extern "C" int host_tile_needs_mask(int64_t qpos0, int64_t nq, int64_t kpos0, int64_t nk,
+                                    int64_t skv, int causal, int64_t window) {
+  return fa_tile_needs_mask(qpos0, nq, kpos0, nk, skv, causal, window);
+}
+
+extern "C" int host_allowed(int64_t qpos, int64_t kpos, int64_t skv, int causal,
+                            int64_t window) {
+  return fa_allowed(qpos, kpos, skv, causal, window);
+}
+
+// Fragment maps, (row, col) per lane and element: A (32 x 8), B (32 x 4),
+// C (32 x 4), written in that order into rc (2 ints each).
+extern "C" void host_fragment_maps(int* rc) {
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 8; ++i, rc += 2) rc[0] = fa_a_row(l, i), rc[1] = fa_a_col(l, i);
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 4; ++i, rc += 2) rc[0] = fa_b_k(l, i), rc[1] = fa_b_n(l, i);
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 4; ++i, rc += 2) rc[0] = fa_c_row(l, i), rc[1] = fa_c_col(l, i);
+}
+
+// Byte offsets in a tile of hd bf16 columns of the 32 row segments that
+// each ldmatrix.x4 of the kernel addresses, in the order Q (kk), K (np,
+// kk), V (j, dp), 32 per instruction; returns how many were written.
+extern "C" int host_ldmatrix_offsets(int hd, int* out) {
+  int n = 0, r, c;
+  for (int kk = 0; kk < hd / 16; ++kk)
+    for (int strip = 0; strip < kWarps * FA_TC_STRIPS(hd); ++strip)
+      for (int l = 0; l < 32; ++l) fa_ldm_q(l, 16 * strip, kk, &r, &c), out[n++] = 2 * fa_smem_off(r, c, hd);
+  for (int np = 0; np < kNT / 2; ++np)
+    for (int kk = 0; kk < hd / 16; ++kk)
+      for (int l = 0; l < 32; ++l) fa_ldm_k(l, np, kk, &r, &c), out[n++] = 2 * fa_smem_off(r, c, hd);
+  for (int j = 0; j < kNT / 2; ++j)
+    for (int dp = 0; dp < hd / 16; ++dp)
+      for (int l = 0; l < 32; ++l) fa_ldm_v(l, j, dp, &r, &c), out[n++] = 2 * fa_smem_off(r, c, hd);
+  return n;
+}
+
+extern "C" int host_smem_off(int row, int col, int hd) { return fa_smem_off(row, col, hd); }

@@ -8,6 +8,10 @@ q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``, float32 or bfloat16,
 ``hd`` in {32, 64, 128}.  On a CUDA tensor the wrapper launches the kernel
 in ``csrc/flash_attn.cu``; on a CPU tensor it runs the plain version
 :func:`~repro_torch.kernels.flash_attn.ref.blocked_attention_plain`.
+The kernel's route follows the dtype and nothing else: bfloat16 runs on
+the tensor cores (``mma.sync`` with P split into two bfloat16 parts),
+float32 on the CUDA cores in float32 (TF32 could not hold float32's
+tolerance).
 
 The kernel follows blocked_attention's query scaling (``q * scale`` in the
 input dtype, then float32); the Pallas kernel scales after the cast.  The
@@ -67,7 +71,9 @@ def flash_attention(
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS} on CUDA")
     if b * h > 65535:
         raise ValueError(f"flash_attention: batch x heads {b * h} > 65535 on CUDA")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    # the bfloat16 route copies 16-byte segments with cp.async
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
