@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; each prints its seconds):
    include path E's skew, rows of several vectors a lane, a misaligned
    table and out-of-range indices); K5 and K6 within stated tolerances
    (K5's bfloat16 families include cancelling value pairs, where one
-   bfloat16 rounding of P would show).
+   bfloat16 rounding of P would show).  K2 runs both of its routes (a
+   row's state in shared memory, and in global memory where it is over the
+   shared-memory budget) and levels whose ways sum to more than 32; K3b
+   both of its routes (16-byte units; single elements for other widths and
+   a misaligned view).  Each log line names the route that ran.
 3. Main path A: ``build_workload("pgd", "comdblp")`` under ``SCALED`` on
    the card, then ``score_prefetchers_batched`` with ``amc`` and ``vldp``.
 4. Main path B: the same for pgd/google under ``PAPER`` (the paper's Table
@@ -28,7 +32,8 @@ Phases (any failure exits non-zero; each prints its seconds):
    for K1, its push edge order for the segment sum), hold each kernel
    against its plain version once more, bit for bit, and time it with CUDA
    events beside its plain version, the card's bound and (where one
-   exists) a PyTorch library call; then time each of B's K1 launches.
+   exists) a PyTorch library call (K2 also with its longest row and the
+   nanoseconds a step of it); then time each of B's K1 launches.
 7. Main paths C (bfs/notredame, ``SCALED``) and D (bfs/google, ``PAPER``)
    and bfs_do/notredame: the §VI two-run protocol, scored on run 2, must
    reproduce ``tests/data/torch_port_golden_evolving.json`` exactly; then
@@ -76,6 +81,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -253,6 +259,7 @@ def k1_families(dev):
 def k2_families(dev):
     import numpy as np
 
+    from repro_torch.kernels.cache_sim.fused_sim import fused_levels_route
     from repro_torch.kernels.cache_sim.ops import fused_levels, fused_levels_plain
     from repro_torch.memsim import PAPER, SCALED
     from repro_torch.memsim.hierarchy import _demand_levels
@@ -278,7 +285,29 @@ def k2_families(dev):
         blocks = rng.integers(0, span, 20000)
         e = k2_resume(blocks, len(blocks) // 2, levels, dev)
         err, n = max(err, e), n + 1
-    log(f"  K2 fused_levels == plain on {n} families (SCALED, PAPER)")
+    log(f"  K2 fused_levels == plain on {n} families (SCALED, PAPER; route "
+        f"{fused_levels_route(levels)})")
+    # ways that sum to more than a warp's 32 lanes (two turns a step), a row
+    # state above 48 KB (shared memory by opt-in) and one above the
+    # shared-memory budget (the global-memory route)
+    for name, levels in (("ways 16 + 16 + 16", ((16, 16), (64, 16), (256, 16))),
+                         ("131 KB of state a row", ((16, 16), (64, 16), (16384, 16))),
+                         ("525 KB of state a row", ((16, 16), (64, 16), (65536, 16)))):
+        span = 40 * levels[-1][0]
+        before = dict(fused_levels.routes)
+        for streams in ([rng.integers(0, span, 30000)],
+                        [rng.integers(0, span, k) for k in (900, 0, 7000)]):
+            args = k2_inputs(streams, levels, dev)
+            e = max_err(fused_levels(*args[:2], levels, *args[2:]),
+                        fused_levels_plain(*args[:2], levels, *args[2:]))
+            check(e == 0, f"K2 {name}: kernel != plain (max err {e})")
+            err = max(err, e)
+        err = max(err, k2_resume(rng.integers(0, span, 20000), 7000, levels, dev))
+        ran = [r for r, c in fused_levels.routes.items() if c > before[r]]
+        check(ran == [fused_levels_route(levels)], f"K2 {name}: routes {ran} ran")
+        log(f"  K2 fused_levels == plain on {name}, a stream axis of 3 with an empty "
+            f"member, and resumed (route {ran[0]})")
+    check(all(fused_levels.routes.values()), f"K2 routes {fused_levels.routes}: one never ran")
     return err
 
 
@@ -367,7 +396,8 @@ def k3_extremes():
 
 
 def k3_families(dev):
-    """K3a / K3b against their plain versions on the card, bit for bit."""
+    """K3a / K3b against their plain versions on the card, bit for bit; K3b
+    on both routes (16-byte units, single elements)."""
     import numpy as np
     import torch
 
@@ -384,7 +414,10 @@ def k3_families(dev):
          np.array([0, 32, 0, 32], np.int32)),
         ("int32 extremes", *k3_extremes()),
         ("W=40 (columns loop)", *k3_tiles(rng, 500, 40, 40000)),
-    ] + [(f"AMC tiles, spread {s}", *k3_tiles(rng, 5000, 32, s)) for s in (50, 5000, 10**6)]
+    ] + [(f"W={w}", *k3_tiles(rng, 3001, w, 5000)) for w in (3, 4, 33)] + [
+        (f"AMC tiles, spread {s}", *k3_tiles(rng, 5000, 32, s)) for s in (50, 5000, 10**6)]
+    routes = basedelta_decompress_tiles.routes
+    before = dict(routes)
     err = 0.0
     for name, tiles, counts in cases:
         t = torch.from_numpy(tiles).to(dev)
@@ -393,12 +426,24 @@ def k3_families(dev):
         e = max_err(got, basedelta_compress_plain(t, c))
         check(e == 0, f"K3a {name}: kernel != plain (max err {e})")
         base = t[:, 0].contiguous()
-        e2 = max_err([basedelta_decompress_tiles(base, got[0])],
-                     [basedelta_decompress_plain(base, got[0])])
-        check(e2 == 0, f"K3b {name}: kernel != plain (max err {e2})")
-        err = max(err, e, e2)
+        views = [("", got[0])]
+        if name.startswith("AMC tiles"):
+            # the same deltas in a view 4 bytes off 16-byte alignment
+            buf = torch.empty(got[0].numel() + 1, dtype=torch.int32, device=dev)
+            views.append((", a view 4 bytes off alignment", buf[1:].view(got[0].shape)))
+            views[-1][1].copy_(got[0])
+        for what, deltas in views:
+            n0 = dict(routes)
+            e2 = max_err([basedelta_decompress_tiles(base, deltas)],
+                         [basedelta_decompress_plain(base, deltas)])
+            check(e2 == 0, f"K3b {name}{what}: kernel != plain (max err {e2})")
+            ran = [r for r, k in routes.items() if k > n0[r]] or ["none (E=0)"]
+            log(f"  K3 {name}{what}: == plain, K3b route {ran[0]}")
+            err = max(err, e, e2)
+    ran = {r: routes[r] - before[r] for r in routes}
+    check(all(ran.values()), f"K3b routes {ran}: one never ran")
     log(f"  K3a basedelta_compress_tiles, K3b basedelta_decompress_tiles == plain on "
-        f"{len(cases)} families")
+        f"{len(cases)} families; K3b launches by route {json.dumps(ran)}")
     return err
 
 
@@ -732,6 +777,7 @@ def time_kernels(wl, dev, errs, launches):
     """Per-kernel timing at main path B's shapes."""
     import torch
 
+    from repro_torch.kernels.cache_sim.fused_sim import fused_levels_route
     from repro_torch.kernels.cache_sim.ops import (
         fused_levels, fused_levels_plain, lru_hits, lru_hits_plain,
     )
@@ -748,6 +794,7 @@ def time_kernels(wl, dev, errs, launches):
     levels = _demand_levels(cfg)
     a2 = k2_inputs([wl.block], levels, dev)
     n2, rows2 = a2[0].numel(), a2[1].numel() - 1
+    longest2 = int((a2[1][1:] - a2[1][:-1]).max())  # the longest dependent chain
     state_b = sum(t.numel() for t in a2[2]) * 4 * 2 * 2
     def run_k2():
         return fused_levels(*a2[:2], levels, *a2[2:])
@@ -769,9 +816,13 @@ def time_kernels(wl, dev, errs, launches):
         launches=launches["fused_levels"], max_abs_err=errs["fused_levels"],
         matches_plain=errs["fused_levels"] == 0,
         ms=ms2, host_us=host2, plain_ms=plain2, bound_ms=b2, bound_by=by2, library_ms=None,
-        shape=f"{n2} kept accesses, {rows2} groups, levels {list(levels)}",
+        kernel_route=fused_levels_route(levels), longest_row=longest2,
+        ns_per_step=ms2 * 1e6 / longest2,
+        shape=f"{n2} kept accesses, {rows2} groups (longest {longest2}), levels {list(levels)}",
     ))
-    log(f"  fused_levels: {ms2:.3f} ms (plain {plain2:.1f} ms, bound {b2:.4f} ms)")
+    log(f"  fused_levels ({fused_levels_route(levels)} route): {ms2:.3f} ms (plain "
+        f"{plain2:.1f} ms, bound {b2:.4f} ms); {n2} kept accesses in {rows2} rows, the "
+        f"longest {longest2} steps: {ms2 * 1e6 / longest2:.1f} ns a step")
 
     # K1: the next-line L2 pass of B's build (the largest K1 launch there).
     prof = wl.profile
@@ -1007,7 +1058,7 @@ def time_recorded_stream_kernels(table, idx, seg, num_segments, tables, dev, err
     )
     from repro_torch.kernels.basedelta.basedelta import (
         basedelta_compress_plain, basedelta_compress_tiles,
-        basedelta_decompress_plain, basedelta_decompress_tiles,
+        basedelta_decompress_plain, basedelta_decompress_tiles, decompress_route,
     )
     from repro_torch.kernels.basedelta.ops import pack_ragged
 
@@ -1086,6 +1137,7 @@ def time_recorded_stream_kernels(table, idx, seg, num_segments, tables, dev, err
     log(f"  basedelta_compress_tiles: {ms:.4f} ms (plain {plain:.4f} ms, bound {b:.5f} ms)")
 
     base = tiles[:, 0].contiguous()
+    route = decompress_route(deltas, torch.empty_like(deltas))
     ms = cuda_ms(lambda: basedelta_decompress_tiles(base, deltas), dev, reps=20)
     host = enqueue_us(lambda: basedelta_decompress_tiles(base, deltas), dev)
     plain = cuda_ms(lambda: basedelta_decompress_plain(base, deltas), dev, reps=20)
@@ -1102,9 +1154,10 @@ def time_recorded_stream_kernels(table, idx, seg, num_segments, tables, dev, err
                     max_abs_err=errs["basedelta_decompress_tiles"],
                     matches_plain=errs["basedelta_decompress_tiles"] == 0, ms=ms, host_us=host,
                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-                    shape=f"({e_rows}, {w}) int32 entry tiles"))
-    log(f"  basedelta_decompress_tiles: {ms:.4f} ms (plain {plain:.4f} ms, "
-        f"base[:, None] + deltas {lib:.4f} ms, bound {b:.5f} ms)")
+                    kernel_route=route, shape=f"({e_rows}, {w}) int32 entry tiles"))
+    log(f"  basedelta_decompress_tiles ({route} route): {ms:.4f} ms (plain {plain:.4f} ms, "
+        f"base[:, None] + deltas {lib:.4f} ms, bound {b:.5f} ms); {ms / lib:.2f} x the "
+        f"library call's time in this call")
     return out
 
 
@@ -1490,8 +1543,6 @@ def path_f(dev, run_path, errs, totals):
 def k5_bf16_spills(report) -> int:
     """Spill bytes ``ptxas`` reported for ``flash_attn_tc_kernel<64>``
     (its report follows the line that names the entry)."""
-    import re
-
     spills, inside = None, False
     for line in report:
         if "Compiling entry" in line:
@@ -1585,7 +1636,15 @@ def main() -> int:
     log(f"  built {len(secs)} libraries in {time.perf_counter() - phase_t[-1]:.1f} s "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
     for src in sources:
-        for line in build.ptxas_report(src):
+        report = build.ptxas_report(src)
+        if len(report) > 30:  # one instantiation per template case: summarize
+            regs = [int(n) for ln in report for n in re.findall(r"Used (\d+) registers", ln)]
+            stack = [int(n) for ln in report for n in re.findall(r"(\d+) bytes stack", ln)]
+            spill = sum(int(n) for ln in report for n in re.findall(r"(\d+) bytes spill", ln))
+            log(f"  [{src.name}] {len(regs)} kernels: {min(regs)}-{max(regs)} registers, "
+                f"stack frames up to {max(stack)} bytes, {spill} bytes of spill")
+            continue
+        for line in report:
             log(f"  [{src.name}] {line}")
     spills = k5_bf16_spills(build.ptxas_report(fa_mod.SOURCE))
     log(f"  K5 bfloat16 route at hd 64: {spills} bytes of spill stores and loads")

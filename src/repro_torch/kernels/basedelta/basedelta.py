@@ -4,13 +4,16 @@ PyTorch versions).
 Replaces the Pallas kernels ``repro/kernels/basedelta/basedelta.py``
 ``basedelta_compress_tiles`` and ``basedelta_decompress_tiles``.  On a CUDA
 tensor each wrapper launches its kernel in ``csrc/basedelta.cu`` (per-row
-step in ``csrc/basedelta_step.h``); on a CPU tensor it runs the plain
-version, :func:`~repro_torch.kernels.basedelta.ref.compress_ref` /
+step and K3b's thread-to-element map in ``csrc/basedelta_step.h``; K3b
+takes 16-byte units or single elements, see :func:`decompress_route`); on
+a CPU tensor it runs the plain version,
+:func:`~repro_torch.kernels.basedelta.ref.compress_ref` /
 :func:`~repro_torch.kernels.basedelta.ref.decompress_ref`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -40,14 +43,23 @@ def _check(name, tiles, row_vec):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _fn(name: str, n_ptr_before: int, n_ptr_after: int):
+@functools.cache
+def _fn(name: str, n_ptr_before: int, n_int_after: int, n_ptr_after: int):
+    """The C entry point ``name``, bound once per process."""
     fn = getattr(load(SOURCE), name)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptr_before + [ctypes.c_int64, ctypes.c_int]
-        + [ctypes.c_void_p] * n_ptr_after
+        + [ctypes.c_int] * n_int_after + [ctypes.c_void_p] * n_ptr_after
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+def decompress_route(deltas: torch.Tensor, out: torch.Tensor) -> str:
+    """K3b's route: ``"vector"`` (16-byte units) when the width is a
+    multiple of 4 and both views are 16-byte aligned, else ``"scalar"``."""
+    aligned = deltas.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return "vector" if deltas.shape[1] % 4 == 0 and aligned else "scalar"
 
 
 def basedelta_compress_tiles(blocks: torch.Tensor, counts: torch.Tensor):
@@ -62,7 +74,7 @@ def basedelta_compress_tiles(blocks: torch.Tensor, counts: torch.Tensor):
     mode = torch.empty(e, dtype=torch.int32, device=blocks.device)
     if e == 0:
         return deltas, mode
-    rc = _fn("basedelta_compress_launch", 2, 3)(
+    rc = _fn("basedelta_compress_launch", 2, 0, 3)(
         ptr(blocks), ptr(counts), e, w, ptr(deltas), ptr(mode),
         stream_ptr(blocks.device),
     )
@@ -81,17 +93,20 @@ def basedelta_decompress_tiles(base: torch.Tensor, deltas: torch.Tensor) -> torc
     out = torch.empty_like(deltas)
     if e == 0:
         return out
-    rc = _fn("basedelta_decompress_launch", 2, 2)(
-        ptr(base), ptr(deltas), e, w, ptr(out), stream_ptr(deltas.device),
-    )
+    fn = _fn("basedelta_decompress_launch", 2, 1, 2)
+    route = decompress_route(deltas, out)
+    rc = fn(ptr(base), ptr(deltas), e, w, int(route == "vector"), ptr(out),
+            stream_ptr(deltas.device))
     if rc:
         raise RuntimeError(f"basedelta_decompress_tiles launch failed with CUDA error {rc}")
     basedelta_decompress_tiles.launches += 1
+    basedelta_decompress_tiles.routes[route] += 1
     return out
 
 
 basedelta_compress_tiles.launches = 0
 basedelta_decompress_tiles.launches = 0
+basedelta_decompress_tiles.routes = {"vector": 0, "scalar": 0}  # launches by route
 
 __all__ = [
     "SOURCE",
@@ -99,4 +114,5 @@ __all__ = [
     "basedelta_compress_tiles",
     "basedelta_decompress_plain",
     "basedelta_decompress_tiles",
+    "decompress_route",
 ]

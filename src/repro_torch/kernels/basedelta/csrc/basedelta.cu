@@ -13,8 +13,17 @@
 // element.  The Pallas kernel walks (8, W) VMEM tiles in grid order; here
 // K3a gives each row one warp, lane = column (W <= 32 in one pass; wider
 // rows loop), so a row's loads and stores are coalesced, and a warp
-// shuffle max-reduce gives the mode with no shared memory.  K3b is one
-// thread per element.
+// shuffle max-reduce gives the mode with no shared memory.
+//
+// K3b (redesigned after one thread an element, with a 64-bit division an
+// element, lost to PyTorch's broadcast add): a block of 256 threads takes
+// rows in groups, each row's units (16-byte vectors where w % 4 == 0 and
+// the views are 16-byte aligned, else single elements) spread over a few
+// threads; a thread divides once to find its row group and column, loads
+// its row's base once into a register, and walks rows in a grid-stride
+// loop over a few waves of the 132 SMs (bd_decompress_map in
+// basedelta_step.h).  The wrapper picks the route by width and alignment;
+// both are CUDA.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,15 +48,12 @@ __global__ void basedelta_compress_kernel(const int32_t* __restrict__ blocks,
   }
 }
 
-__global__ void basedelta_decompress_kernel(const int32_t* __restrict__ base,
-                                            const int32_t* __restrict__ deltas,
-                                            int64_t e, int w,
-                                            int32_t* __restrict__ out) {
-  const int64_t n = e * w;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = bd_wrap_add(base[i / w], deltas[i]);
+template <typename U>
+__global__ void __launch_bounds__(BD_BLOCK)
+    basedelta_decompress_kernel(const int32_t* __restrict__ base,
+                                const U* __restrict__ deltas, int64_t e, BdMap m,
+                                U* __restrict__ out) {
+  bd_decompress_thread<U>(base, deltas, e, m, blockIdx.x, threadIdx.x, out);
 }
 
 static int grid_for(int64_t threads_needed, int block) {
@@ -67,13 +73,20 @@ extern "C" int basedelta_compress_launch(const void* blocks, const void* counts,
   return (int)cudaGetLastError();
 }
 
+// `vec` 1 takes the vector route (16-byte units; w % 4 == 0 and deltas and
+// out 16-byte aligned, else an error), 0 the scalar one.
 extern "C" int basedelta_decompress_launch(const void* base, const void* deltas,
-                                           int64_t e, int w, void* out,
+                                           int64_t e, int w, int vec, void* out,
                                            void* stream) {
   if (e <= 0 || w <= 0) return 0;
-  const int block = 256;
-  basedelta_decompress_kernel<<<grid_for(e * w, block), block, 0,
-                                (cudaStream_t)stream>>>(
-      (const int32_t*)base, (const int32_t*)deltas, e, w, (int32_t*)out);
+  if (vec && !bd_vec_ok(deltas, out, w)) return (int)cudaErrorMisalignedAddress;
+  const BdMap m = bd_decompress_map(e, w, vec != 0);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    basedelta_decompress_kernel<bd_int4><<<m.grid, BD_BLOCK, 0, s>>>(
+        (const int32_t*)base, (const bd_int4*)deltas, e, m, (bd_int4*)out);
+  else
+    basedelta_decompress_kernel<int32_t><<<m.grid, BD_BLOCK, 0, s>>>(
+        (const int32_t*)base, (const int32_t*)deltas, e, m, (int32_t*)out);
   return (int)cudaGetLastError();
 }

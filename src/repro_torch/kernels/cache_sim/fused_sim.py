@@ -7,13 +7,17 @@ Replaces the Pallas kernel ``repro/kernels/cache_sim/fused_sim.py``
 :func:`repro_torch.memsim.fused.state_to_groups`).  The input is ragged:
 the group-sorted, run-collapsed stream plus per-row offsets, one row per
 (stream, group).  On a CUDA tensor :func:`fused_levels` launches
-``csrc/fused_levels.cu`` (one thread per row); on a CPU tensor it runs
-:func:`fused_levels_plain`, which advances every row one access per step
-over the padded matrix, as ``repro/memsim/fused.py::_fused_scan`` does.
+``csrc/fused_levels.cu`` (one warp per row, longest rows first, every
+level's ways looked up at once; the row's state in shared memory, or in
+global memory when it does not fit, see :func:`fused_levels_route`); on a
+CPU tensor it runs :func:`fused_levels_plain`, which advances every row one
+access per step over the padded matrix, as
+``repro/memsim/fused.py::_fused_scan`` does.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import List, Sequence, Tuple
 
@@ -24,6 +28,9 @@ from repro_torch.kernels.cache_sim.cache_sim import MAX_WAYS, ragged_to_padded
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_levels.cu"
 MAX_LEVELS = 4
+# The most dynamic shared memory a block of the H100 may opt in to (227 KB):
+# a row's state larger than this walks global memory.
+SMEM_BUDGET = 232_448
 _INT32_MIN = torch.iinfo(torch.int32).min
 
 
@@ -60,6 +67,25 @@ def _check(blocks, offsets, levels, tags, age):
         raise ValueError("fused_levels: offsets must be int64 beside blocks")
 
 
+def fused_levels_route(levels) -> str:
+    """``"shared"`` when a row's state, ``sum(R_i * ways_i)`` (tag, age)
+    pairs, fits a block's shared memory, else ``"global"``."""
+    lanes = _geometry(tuple((int(s), int(w)) for s, w in levels))[3]
+    return "shared" if sum(lanes) * 8 <= SMEM_BUDGET else "global"
+
+
+@functools.cache
+def _launch_fn():
+    """The kernel's C entry point, bound once per process."""
+    fn = load(SOURCE).fused_levels_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def fused_levels(blocks, offsets, levels, tags: List, age: List):
     """Hit level of every access of a ragged group-sorted stream.
 
@@ -73,31 +99,36 @@ def fused_levels(blocks, offsets, levels, tags: List, age: List):
     _check(blocks, offsets, levels, tags, age)
     if blocks.device.type == "cpu":
         return fused_levels_plain(blocks, offsets, levels, tags, age)
+    fn = _launch_fn()
     k = len(levels)
     lg, rmask, ways, lanes = _geometry(levels)
-    tags_out = [t.clone() for t in tags]  # the kernel updates these in place
-    age_out = [a.clone() for a in age]
+    route = fused_levels_route(levels)
+    rows = offsets.shape[0] - 1
+    # longest rows first: with more rows than fit the card at once, the
+    # longest chains start in the first wave
+    order = torch.argsort(offsets[1:] - offsets[:-1], descending=True, stable=True)
+    order = order.to(torch.int32)
+    tags_out = [torch.empty_like(t) for t in tags]  # the kernel writes the final state
+    age_out = [torch.empty_like(a) for a in age]
     lvl = torch.empty(blocks.shape[0], dtype=torch.int8, device=blocks.device)
     ints = ctypes.c_int * k
     ptrs = ctypes.c_void_p * k
-    lib = load(SOURCE)
-    fn = lib.fused_levels_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
     rc = fn(
-        ptr(blocks), ptr(offsets), offsets.shape[0] - 1, k, lg,
+        ptr(blocks), ptr(offsets), ptr(order), rows, k, lg,
         ints(*rmask), ints(*ways), ints(*lanes),
-        ptrs(*(t.data_ptr() for t in tags_out)),
-        ptrs(*(a.data_ptr() for a in age_out)),
-        ptr(lvl), stream_ptr(blocks.device),
+        ptrs(*(t.data_ptr() for t in tags)), ptrs(*(a.data_ptr() for a in age)),
+        ptrs(*(t.data_ptr() for t in tags_out)), ptrs(*(a.data_ptr() for a in age_out)),
+        int(route == "shared"), ptr(lvl), stream_ptr(blocks.device),
     )
     if rc:
         raise RuntimeError(f"fused_levels launch failed with CUDA error {rc}")
     fused_levels.launches += 1
+    fused_levels.routes[route] += 1
     return lvl, tags_out, age_out
 
 
 fused_levels.launches = 0
+fused_levels.routes = {"shared": 0, "global": 0}  # launches by route
 
 
 def fused_levels_plain(blocks, offsets, levels, tags: List, age: List):
@@ -134,4 +165,11 @@ def fused_levels_plain(blocks, offsets, levels, tags: List, age: List):
     return lvl_mat[col, row], tags, age
 
 
-__all__ = ["MAX_LEVELS", "SOURCE", "fused_levels", "fused_levels_plain"]
+__all__ = [
+    "MAX_LEVELS",
+    "SMEM_BUDGET",
+    "SOURCE",
+    "fused_levels",
+    "fused_levels_plain",
+    "fused_levels_route",
+]

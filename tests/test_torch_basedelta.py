@@ -3,7 +3,8 @@ package.
 
 The plain PyTorch versions (CPU tensors) and a g++ build of the CUDA step
 header ``csrc/basedelta_step.h`` — the logic the GPU runs, compiled for
-the host — are held bit for bit against the Pallas kernels in interpret
+the host, K3b's kernels as every thread of their grid through its
+thread-to-element map, on both routes — are held bit for bit against the Pallas kernels in interpret
 mode and the JAX oracles ``compress_ref`` / ``decompress_ref``, on the
 cases of the JAX package's own tests plus deltas that wrap at the int32
 extremes.  ``pack_ragged`` / ``compress_entries`` / ``roundtrip`` give the
@@ -77,6 +78,10 @@ def host_bd(tmp_path_factory):
     lib.host_basedelta_compress.restype = ci
     lib.host_basedelta_decompress.argtypes = [vp, vp, i64, ci, vp]
     lib.host_basedelta_decompress.restype = ci
+    lib.host_basedelta_decompress_map.argtypes = [vp, vp, i64, ci, ci, vp]
+    lib.host_basedelta_decompress_map.restype = ci
+    lib.host_basedelta_map.argtypes = [i64, ci, ci, vp]
+    lib.host_basedelta_map.restype = ci
     return lib
 
 
@@ -177,6 +182,67 @@ def test_k3_counts_zero_and_full(host_bd):
     tiles = np.random.default_rng(3).integers(-99, 99, (4, 32)).astype(np.int32)
     got, _ = _all_versions_equal(host_bd, tiles, np.array([0, 32, 0, 32], np.int32))
     assert not got[0][0].any() and not got[0][2].any()
+
+
+# ------------------------------------------- K3b's thread-to-element map
+
+
+def _view(buf_words, e, w, off):
+    """A contiguous (e, w) int32 view ``off`` words into a fresh buffer."""
+    buf = torch.empty(buf_words + 4, dtype=torch.int32)
+    base_off = (-buf.data_ptr() // 4) % 4  # words to the next 16-byte boundary
+    return buf[base_off + off : base_off + off + e * w].view(e, w)
+
+
+def host_decompress_map(lib, base, deltas, vec):
+    out = torch.full_like(deltas, 0x5A5A5A5A)  # fresh, so 16-byte aligned
+    e, w = deltas.shape
+    rc = lib.host_basedelta_decompress_map(_ptr(base), _ptr(deltas), e, w, vec, _ptr(out))
+    return rc, out
+
+
+@pytest.mark.parametrize("width", range(1, 41))
+def test_k3b_thread_map_matches_oracle_and_jax(host_bd, width):
+    """Every thread of K3b's grid, on the route the wrapper picks, for
+    E = 0, 1 and path D's 77,995 rows, aligned and 4 bytes off alignment:
+    equal to the plain version and JAX's ``decompress_ref``; the vector
+    route is refused on a misaligned view."""
+    rng = np.random.default_rng(width)
+    for e in (0, 1, 77_995):
+        d = rng.integers(I32_MIN, I32_MAX, (e, width), dtype=np.int64, endpoint=True)
+        base_np = rng.integers(I32_MIN, I32_MAX, e, dtype=np.int64, endpoint=True)
+        base = torch.from_numpy(base_np.astype(np.int32))
+        want = decompress_ref(base, torch.from_numpy(d.astype(np.int32)))
+        if e:
+            np.testing.assert_array_equal(want.numpy(), np.asarray(j_decompress_ref(
+                jnp.asarray(base_np.astype(np.int32)), jnp.asarray(d.astype(np.int32)))))
+        for off in (0, 1):
+            deltas = _view(e * width, e, width, off)
+            deltas.copy_(torch.from_numpy(d.astype(np.int32)))
+            route = t_basedelta.decompress_route(deltas, torch.empty_like(deltas))
+            if e:  # an empty view has no address
+                assert deltas.is_contiguous() and (deltas.data_ptr() % 16 == 0) == (off == 0)
+                assert route == ("vector" if width % 4 == 0 and off == 0 else "scalar")
+            rc, got = host_decompress_map(host_bd, base, deltas, int(route == "vector"))
+            assert rc == 0
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+            if e and width % 4 == 0 and off:
+                assert host_decompress_map(host_bd, base, deltas, 1)[0] == 2
+            if e and route == "vector":  # the scalar route gives the same
+                rc, got = host_decompress_map(host_bd, base, deltas, 0)
+                np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("e,w,vec,want", [
+    (77_995, 32, 1, (8, 8, 32, 2438)),  # path D's tiles: one row a thread group
+    (77_995, 33, 0, (33, 33, 7, 4224)),  # capped at a few waves
+    (5, 1, 0, (1, 1, 256, 1)),
+    (3, 2048, 1, (512, 256, 1, 3)),  # a row wider than a block loops
+])
+def test_k3b_map_shape(host_bd, e, w, vec, want):
+    out = (ctypes.c_int64 * 4)()
+    assert host_bd.host_basedelta_map(e, w, vec, out) == 0
+    assert tuple(out) == want
 
 
 # -------------------------------------------------------- entry API

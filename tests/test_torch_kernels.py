@@ -2,8 +2,10 @@
 
 K1 (``lru_hits``) and K2 (``fused_levels``) run here through their plain
 PyTorch versions (CPU tensors) and through a g++ build of the CUDA step
-header ``csrc/cache_sim_step.h`` — the logic the GPU runs, compiled for
-the host.  Both are held bit for bit against the Pallas kernels in
+headers ``csrc/cache_sim_step.h`` and ``csrc/fused_warp_step.h`` — the
+logic the GPU runs, compiled for the host; K2's warp kernel runs as an
+emulation of its 32 lanes (``host_fused_levels_warp``), on both of its
+state routes.  Both are held bit for bit against the Pallas kernels in
 interpret mode (``lru_hits`` / ``lru_hits_carry`` / ``fused_levels_pallas``)
 and the pure-Python oracle ``lru_hits_ref``: hit bits, hit levels and raw
 final states (every version stamps ages with the position in the row plus
@@ -52,6 +54,13 @@ GEOMETRIES = [
     ((4, 1), (8, 2), (16, 1)),  # ways=1 at the outer and inner level
     ((8, 2), (8, 4)),  # equal set counts
 ]
+# K2's warp step: the demand levels of SCALED (GEOMETRIES[0]) and PAPER,
+# 8 + 8 + 16 ways in one turn of 32 lanes; ways that sum to more than 32
+# (two turns), and four levels of 32 ways (four turns)
+PAPER_DEMAND = ((128, 8), (512, 8), (8192, 16))
+WIDE = ((16, 16), (64, 16), (256, 16))
+WARP_GEOMETRIES = GEOMETRIES + [PAPER_DEMAND, WIDE, ((2, 32), (4, 32), (8, 32), (16, 32))]
+ROUTES = {"shared": 1, "global": 0}
 
 
 def _stream(n, span, seed):
@@ -232,6 +241,10 @@ def host_steps(tmp_path_factory):
     lib.host_lru_hits.restype = ci
     lib.host_fused_levels.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.host_fused_levels.restype = ci
+    lib.host_fused_levels_warp.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+    lib.host_fused_levels_warp.restype = ci
+    lib.host_fused_turns.argtypes = [ci, vp, vp]
+    lib.host_fused_turns.restype = ci
     return lib
 
 
@@ -265,6 +278,31 @@ def host_fused(lib, blocks, offsets, levels, tags, age):
         ptrs(*[t.data_ptr() for t in to]), ptrs(*[a.data_ptr() for a in ao]), _ptr(lvl),
     )
     assert rc == 0
+    return lvl, to, ao
+
+
+def host_fused_warp(lib, blocks, offsets, levels, tags, age, route):
+    """The emulated warp kernel: ``(lvl, tags_out, age_out)``; the inputs
+    are left as they are."""
+    groups = min(s for s, _ in levels)
+    k = len(levels)
+    ints = ctypes.c_int * k
+    ptrs = ctypes.c_void_p * k
+    to = [torch.full_like(t, -7) for t in tags]
+    ao = [torch.full_like(a, -7) for a in age]
+    lvl = torch.full((blocks.shape[0],), -7, dtype=torch.int8)
+    keep = [t.clone() for t in tags] + [a.clone() for a in age]
+    rc = lib.host_fused_levels_warp(
+        _ptr(blocks), _ptr(offsets), offsets.shape[0] - 1, k, groups.bit_length() - 1,
+        ints(*[s // groups - 1 for s, _ in levels]), ints(*[w for _, w in levels]),
+        ints(*[(s // groups) * w for s, w in levels]),
+        ptrs(*[t.data_ptr() for t in tags]), ptrs(*[a.data_ptr() for a in age]),
+        ptrs(*[t.data_ptr() for t in to]), ptrs(*[a.data_ptr() for a in ao]),
+        ROUTES[route], _ptr(lvl),
+    )
+    assert rc == 0
+    for t, kept in zip(list(tags) + list(age), keep):
+        assert torch.equal(t, kept)
     return lvl, to, ao
 
 
@@ -326,6 +364,115 @@ def test_host_build_k2_matches_plain_and_jax(host_steps, n, span, geom, seed):
             )
             np.testing.assert_array_equal(canon.tags.numpy(), jst[i].tags)
             np.testing.assert_array_equal(canon.age.numpy(), jst[i].age)
+
+
+def _jax_levels_and_states(blocks, geom, states, got):
+    """Assert the port's kept-order result ``got`` equals the JAX package's
+    fused pass (hit levels in stream order, canonical final states)."""
+    jl, jst = jfused.fused_cache_pass(
+        blocks, geom, states, return_states=True, use_pallas=False, force_scan=True
+    )
+    groups = jfused.fused_group_count(geom)
+    _, order, keep, _ = tfused._group_collapse(blocks, groups)
+    np.testing.assert_array_equal(tfused._unpack_levels(len(blocks), got[0].numpy(), order, keep), jl)
+    for i, (s, w) in enumerate(geom):
+        canon = tengine.canonicalize_state(
+            tfused.state_from_groups(got[1][i], s, w),
+            tfused.state_from_groups(got[2][i], s, w),
+        )
+        np.testing.assert_array_equal(canon.tags.numpy(), jst[i].tags)
+        np.testing.assert_array_equal(canon.age.numpy(), jst[i].age)
+    return jst
+
+
+@given(
+    n=st.integers(0, 500),
+    span=st.integers(1, 20000),
+    geom=st.sampled_from(WARP_GEOMETRIES),
+    route=st.sampled_from(sorted(ROUTES)),
+    seed=st.integers(0, 50),
+)
+@settings(max_examples=30, deadline=None)
+def test_host_warp_k2_matches_plain_pallas_and_jax(host_steps, n, span, geom, route, seed):
+    """The warp kernel's step, emulated lane by lane, on every geometry and
+    both state routes: hit levels and raw final states equal the plain
+    version's and the Pallas kernel's (interpret mode), and the JAX
+    package's fused pass."""
+    blocks = _stream(n, span, seed) if n else np.zeros(0, np.int64)
+    states = [_random_canonical(s, w, seed + i) for i, (s, w) in enumerate(geom)]
+    args = _k2_ragged(blocks, geom, states)
+    got = host_fused_warp(host_steps, *args[:2], geom, *args[2:], route)
+    assert_k2_equal(got, fused_levels_plain(*args[:2], geom, *args[2:]))
+    if n:
+        assert_k2_equal(got, _pallas_k2(blocks, geom, states))
+        _jax_levels_and_states(blocks, geom, states, got)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("geom", [GEOMETRIES[0], PAPER_DEMAND, WIDE, GEOMETRIES[3]])
+def test_host_warp_k2_resumes_carry_at_a_seam(host_steps, geom, route):
+    """Cold over the first part, then resumed at the seam from the first
+    part's canonical carry: each part equals the plain version and the JAX
+    package's pass resumed from its own carry."""
+    blocks = _stream(1500, 60 * max(s for s, _ in geom), seed=7)
+    seam = 611
+    states = [jengine.init_state(s, w) for s, w in geom]
+    for part in (blocks[:seam], blocks[seam:]):
+        args = _k2_ragged(part, geom, states)
+        got = host_fused_warp(host_steps, *args[:2], geom, *args[2:], route)
+        assert_k2_equal(got, fused_levels_plain(*args[:2], geom, *args[2:]))
+        states = _jax_levels_and_states(part, geom, states, got)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_host_warp_k2_stream_axis_with_empty_rows(host_steps, route):
+    """Three streams in one call, one of them empty, rows of uneven length
+    (the longest longer than many 32-access batches): equal to the plain
+    version, and every row's state comes back even where it had no access."""
+    geom = PAPER_DEMAND
+    groups = jfused.fused_group_count(geom)
+    rng = np.random.default_rng(3)
+    streams = [rng.integers(0, 40 * 8192, 2000), np.zeros(0, np.int64),
+               np.concatenate([5 + groups * rng.integers(0, 3000, 400), rng.integers(0, 900, 300)])]
+    grouped = [tfused._group_collapse(s, groups) for s in streams]
+    blocks = torch.from_numpy(np.concatenate([g[0] for g in grouped]))
+    offsets = torch.from_numpy(tengine.ragged_offsets([g[3] for g in grouped]))
+    assert int((offsets[1:] - offsets[:-1]).max()) > 3 * 32
+    assert int((offsets[1:] == offsets[:-1]).sum()) >= groups
+    states = [_random_canonical(s, w, 11 + i) for i, (s, w) in enumerate(geom)]
+    tags = [torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([jfused.state_to_groups(st.tags, groups)] * 3))) for st in states]
+    age = [torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([jfused.state_to_groups(st.age, groups)] * 3))) for st in states]
+    got = host_fused_warp(host_steps, blocks, offsets, geom, tags, age, route)
+    assert_k2_equal(got, fused_levels_plain(blocks, offsets, geom, tags, age))
+
+
+@pytest.mark.parametrize("ways,turns,first,off", [
+    ((8, 8, 16), 1, [0], [0, 8, 16]),
+    ((16, 16, 16), 2, [0, 2], [0, 16, 0]),
+    ((4, 1), 1, [0], [0, 4]),
+    ((32, 32, 32, 32), 4, [0, 1, 2, 3], [0, 0, 0, 0]),
+    ((20, 12, 1, 31), 2, [0, 2], [0, 20, 0, 1]),
+])
+def test_fused_turns_pack_levels_in_order(host_steps, ways, turns, first, off):
+    k = len(ways)
+    out = (ctypes.c_int * (2 * k + 1))()
+    assert host_steps.host_fused_turns(k, (ctypes.c_int * k)(*ways), out) == 0
+    assert out[0] == turns
+    assert list(out[1 : 1 + turns]) == first
+    assert list(out[1 + k :]) == off
+
+
+def test_route_follows_the_state_size():
+    from repro_torch.kernels.cache_sim.fused_sim import SMEM_BUDGET, fused_levels_route
+
+    assert fused_levels_route(PAPER_DEMAND) == "shared"  # 1,064 pairs, 8.5 KB
+    assert fused_levels_route(((16, 16), (64, 16), (16384, 16))) == "shared"  # 131 KB
+    assert fused_levels_route(((16, 16), (64, 16), (65536, 16))) == "global"  # 525 KB
+    assert (8 + 2048 * 8) * 8 <= SMEM_BUDGET < (8 + 4096 * 8) * 8
+    assert fused_levels_route(((16, 8), (16 * 2048, 8))) == "shared"
+    assert fused_levels_route(((16, 8), (16 * 4096, 8))) == "global"
 
 
 # ------------------------------------------------------ wrappers, routing
