@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; each prints its seconds):
    (the ordered segment sum, K4b ``amc_gather_segment_sum``, whose families
    include path E's skew, rows of several vectors a lane, a misaligned
    table and out-of-range indices); K5 and K6 within stated tolerances
-   (K5's bfloat16 families include cancelling value pairs, where one
-   bfloat16 rounding of P would show).  K2 runs both of its routes (a
+   (K5's and K6's bfloat16 families include cancelling pairs, where one
+   bfloat16 rounding of P, or of K6's G, w B or S, would show; K6 runs both
+   of its routes, bfloat16 and float32, and checks that both ran).  K2 runs both of its routes (a
    row's state in shared memory, and in global memory where it is over the
    shared-memory budget) and levels whose ways sum to more than 32; K3b
    both of its routes (16-byte units; single elements for other widths and
@@ -28,12 +29,13 @@ Phases (any failure exits non-zero; each prints its seconds):
    package's golden rows (``tests/data/torch_port_golden.json``) exactly.
 5. K2 on the first 2,000,000 accesses of B's demand stream, cold and
    resumed at access 1,000,000, against its plain version.
-6. At B's shapes (its whole demand stream for K2, its next-line L2 pass
-   for K1, its push edge order for the segment sum), hold each kernel
-   against its plain version once more, bit for bit, and time it with CUDA
-   events beside its plain version, the card's bound and (where one
-   exists) a PyTorch library call (K2 also with its longest row and the
-   nanoseconds a step of it); then time each of B's K1 launches.
+6. At B's shapes (its whole demand stream for K2, the largest of its K1
+   launches for K1, its push edge order for the segment sum), hold each
+   kernel against its plain version once more, bit for bit, and time it
+   with CUDA events beside its plain version, the card's bound and (where
+   one exists) a PyTorch library call (K1 and K2 also with their longest
+   row and the nanoseconds a step of it); then time each of B's K1
+   launches, with its longest row and nanoseconds a step.
 7. Main paths C (bfs/notredame, ``SCALED``) and D (bfs/google, ``PAPER``)
    and bfs_do/notredame: the §VI two-run protocol, scored on run 2, must
    reproduce ``tests/data/torch_port_golden_evolving.json`` exactly; then
@@ -252,8 +254,35 @@ def k1_families(dev):
     second = k1_inputs([blocks[h:]], 64, 8, dev, states=[st])
     e = max_err(lru_hits(*second), lru_hits_plain(*second))
     check(e == 0, f"K1 resume: kernel != plain (max err {e})")
-    log(f"  K1 lru_hits == plain on {len(cases) + 1} families")
-    return max(err, e)
+    err = max(err, e)
+    # ragged rows of every length around the kernel's 4-access hit words
+    # and 4 G-access batches (so rows start at every offset within a batch,
+    # and some run many batches), a tenth of the accesses pads (-1), from a
+    # random carry, at ways 3, 8 and 32 (lane groups of 4, 8 and 32); and a
+    # view of the blocks 4 bytes off 16-byte alignment (the wrapper copies
+    # it)
+    import torch
+
+    lengths = np.array([0, 1, 15, 16, 17, 63, 64, 65, 200, 5000, 0, 3, 129, 40, 1, 0, 77] * 8)
+    for ways in (3, 8, 32):
+        blocks = rng.integers(0, 8 * ways + 3, int(lengths.sum())).astype(np.int32)
+        blocks[rng.random(blocks.shape[0]) < 0.1] = -1
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])).to(dev)
+        st = engine.canonicalize_state(
+            torch.from_numpy(rng.integers(-1, 30, (len(lengths), ways)).astype(np.int32)),
+            torch.from_numpy(rng.permuted(np.tile(np.arange(1, ways + 1), (len(lengths), 1)),
+                                          axis=1).astype(np.int32)))
+        args = (torch.from_numpy(blocks).to(dev), offsets, st.tags.to(dev), st.age.to(dev))
+        e = max_err(lru_hits(*args), lru_hits_plain(*args))
+        check(e == 0, f"K1 batches and pads, ways {ways}: kernel != plain (max err {e})")
+        off = torch.empty(blocks.shape[0] + 1, dtype=torch.int32, device=dev)[1:]
+        off.copy_(args[0])
+        check(off.data_ptr() % 16 != 0, "K1 misaligned family: view is aligned")
+        e = max_err(lru_hits(off, *args[1:]), lru_hits_plain(*args))
+        check(e == 0, f"K1 misaligned blocks, ways {ways}: kernel != plain (max err {e})")
+    log(f"  K1 lru_hits == plain on {len(cases) + 7} families (batches and pads at ways 3, 8 "
+        f"and 32, each also from a misaligned view)")
+    return err
 
 
 def k2_families(dev):
@@ -630,24 +659,35 @@ def k5_families(dev):
     return err
 
 
-def k6_inputs(rng, bsz, s, h, p, n, dtype, dev, init=False, softplus_dt=False):
+def k6_inputs(rng, bsz, s, h, p, n, dtype, dev, init=False, softplus_dt=False,
+              cancelling=False):
+    """K6 inputs from ``rng``; with ``cancelling``, positions in pairs (the
+    second's B 1.05 times the first's, its x negated, the same dt, slow
+    decay), so that one bfloat16 rounding of G, w B or S would show
+    (``tests/test_torch_ssd_scan_tc.py``)."""
     import numpy as np
     import torch
 
     def t(arr, dt=torch.float32):
         return torch.from_numpy(np.asarray(arr, dtype=np.float32)).to(dt).to(dev)
 
-    x = t(rng.normal(size=(bsz, s, h, p)), dtype)
+    x = rng.normal(size=(bsz, s, h, p))
     if softplus_dt:  # the model's init: dt = softplus(N(0, 1)), a = -1
-        dt = t(np.log1p(np.exp(rng.normal(size=(bsz, s, h)))))
-        a = t(-np.ones(h))
+        dt = np.log1p(np.exp(rng.normal(size=(bsz, s, h))))
+        a = -np.ones(h)
     else:
-        dt = t(rng.uniform(0.1, 0.8, (bsz, s, h)))
-        a = t(-rng.uniform(0.3, 1.5, h))
-    b = t(rng.normal(size=(bsz, s, n)), dtype)
-    c = t(rng.normal(size=(bsz, s, n)), dtype)
+        dt = rng.uniform(0.1, 0.8, (bsz, s, h))
+        a = -rng.uniform(0.3, 1.5, h)
+    b = rng.normal(size=(bsz, s, n))
+    c = rng.normal(size=(bsz, s, n))
+    if cancelling:
+        half = s // 2
+        b[:, 1:2 * half:2] = 1.05 * b[:, 0:2 * half:2]
+        x[:, 1:2 * half:2] = -x[:, 0:2 * half:2]
+        dt[:, 1:2 * half:2] = dt[:, 0:2 * half:2]
+        a = -rng.uniform(0.01, 0.05, h)
     st = t(rng.normal(size=(bsz, h, p, n))) if init else None
-    return x, dt, a, b, c, st
+    return t(x, dtype), t(dt), t(a), t(b, dtype), t(c, dtype), st
 
 
 def k6_families(dev):
@@ -663,7 +703,9 @@ def k6_families(dev):
 
     rng = np.random.default_rng(7)
     f32, bf16 = torch.float32, torch.bfloat16
-    # (name, bsz, s, h, p, n, chunk, dtype, init)
+    routes = dict(ssd_scan.routes)
+    # (name, bsz, s, h, p, n, chunk, dtype, init); "cancelling" cases take
+    # k6_inputs' cancelling pairs
     cases = [
         ("P 32 N 16 chunk 16", 2, 50, 3, 32, 16, 16, f32, False),
         ("P 32 N 64 chunk 32, init", 2, 120, 2, 32, 64, 32, f32, True),
@@ -675,10 +717,16 @@ def k6_families(dev):
         ("bf16 P 64 N 64 chunk 256, init", 2, 600, 4, 64, 64, 256, bf16, True),
         ("bf16 P 32 N 16 chunk 16", 1, 100, 2, 32, 16, 16, bf16, False),
         ("bf16 P 64 N 128 chunk 64", 1, 200, 2, 64, 128, 64, bf16, False),
+        ("cancelling pairs, bf16 zamba2 head shapes, init", 2, 1000, 8, 64, 64, 256, bf16, True),
+        ("cancelling pairs, bf16 P 32 N 128 chunk 128", 1, 333, 3, 32, 128, 128, bf16, False),
+        ("f32 P 32 N 16 chunk 48, init", 1, 100, 2, 32, 16, 48, f32, True),
+        ("f32 P 64 N 128 chunk 512 (query tiles of 16)", 1, 1100, 2, 64, 128, 512, f32, True),
+        ("bf16 P 64 N 64 chunk 1024 (query tiles of 16)", 1, 2100, 2, 64, 64, 1024, bf16, False),
     ]
     err, n = 0.0, 0
     for name, bsz, s, h, p, nn, chunk, dtype, init in cases:
-        x, dt, a, b, c, st = k6_inputs(rng, bsz, s, h, p, nn, dtype, dev, init)
+        x, dt, a, b, c, st = k6_inputs(rng, bsz, s, h, p, nn, dtype, dev, init,
+                                       cancelling=name.startswith("cancelling"))
         y, fin = ssd_scan(x, dt, a, b, c, chunk=chunk, init_state=st)
         y_ref, fin_ref = ssd_chunked_plain(x, dt, a, b, c, chunk, st)
         check(y.dtype == x.dtype and fin.dtype == f32, f"K6 {name}: dtypes")
@@ -686,14 +734,37 @@ def k6_families(dev):
         err = max(err, close(y, y_ref, what=f"K6 {name}: y", **tol),
                   close(fin, fin_ref, what=f"K6 {name}: final state", **SSD_TOL["float32"]))
         n += 1
-    x, dt, a, b, c, _ = k6_inputs(rng, 1, 512, 4, 64, 64, f32, dev, softplus_dt=True)
-    y, fin = ssd_scan(x, dt, a, b, c, chunk=256)
-    y_ref, fin_ref = ssd_naive(x, dt, a, b, c)
-    err = max(err, close(y, y_ref, what="K6 vs ssd_naive, chunk 256: y", **SSD_TOL["float32"]),
-              close(fin, fin_ref, what="K6 vs ssd_naive, chunk 256: state", **SSD_TOL["float32"]))
+    # x, B and C as slices of one in-projection (the model's layout: the
+    # kernel reads them in place), and a projection whose slices sit 2
+    # elements off 16-byte alignment (the wrapper copies them)
+    for shift in (0, 2):
+        bsz, s_len, h, p, nn = 2, 700, 8, 64, 64
+        proj = torch.from_numpy(rng.normal(size=(bsz, s_len, shift + h * p + 2 * nn))
+                                .astype(np.float32)).to(bf16).to(dev)[..., shift:]
+        x = proj[..., :h * p].reshape(bsz, s_len, h, p)
+        b, c = proj[..., h * p:h * p + nn], proj[..., h * p + nn:]
+        _, dt, a, _, _, st = k6_inputs(rng, bsz, s_len, h, p, nn, bf16, dev, init=True)
+        check((x.data_ptr() % 16 == 0) == (shift == 0) and not x.is_contiguous(),
+              "K6 sliced family: the views are not what the case needs")
+        y, fin = ssd_scan(x, dt, a, b, c, chunk=256, init_state=st)
+        y_ref, fin_ref = ssd_chunked_plain(x, dt, a, b, c, 256, st)
+        what = f"K6 slices of one projection{' (misaligned)' if shift else ''}"
+        err = max(err, close(y, y_ref, what=f"{what}: y", **SSD_TOL["bfloat16"]),
+                  close(fin, fin_ref, what=f"{what}: final state", **SSD_TOL["float32"]))
+        n += 1
+    for dtype in (f32, bf16):  # both routes against the recurrence
+        x, dt, a, b, c, _ = k6_inputs(rng, 1, 512, 4, 64, 64, dtype, dev, softplus_dt=True)
+        y, fin = ssd_scan(x, dt, a, b, c, chunk=256)
+        y_ref, fin_ref = ssd_naive(x, dt, a, b, c)
+        tol = SSD_TOL[str(dtype).split(".")[1]]
+        err = max(err, close(y, y_ref, what=f"K6 vs ssd_naive, chunk 256, {dtype}: y", **tol),
+                  close(fin, fin_ref, what=f"K6 vs ssd_naive, chunk 256, {dtype}: state",
+                        **SSD_TOL["float32"]))
+    ran = {r: ssd_scan.routes[r] - routes[r] for r in routes}
+    check(all(ran.values()), f"K6 routes {ran}: one never ran")
     log(f"  K6 ssd_scan == plain on {n} families and == ssd_naive at chunk 256 with "
         f"dt = softplus(N(0, 1)) (float32 2e-4, bfloat16 rtol 1e-2 atol 1e-3), max abs err "
-        f"{err:.3g}")
+        f"{err:.3g}; launches by route {ran}")
     return err
 
 
@@ -773,8 +844,9 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def time_kernels(wl, dev, errs, launches):
-    """Per-kernel timing at main path B's shapes."""
+def time_kernels(wl, dev, errs, launches, k1_calls):
+    """Per-kernel timing at main path B's shapes (K1 at the largest of the
+    recorded K1 launches ``k1_calls``)."""
     import torch
 
     from repro_torch.kernels.cache_sim.fused_sim import fused_levels_route
@@ -824,18 +896,16 @@ def time_kernels(wl, dev, errs, launches):
         f"{plain2:.1f} ms, bound {b2:.4f} ms); {n2} kept accesses in {rows2} rows, the "
         f"longest {longest2} steps: {ms2 * 1e6 / longest2:.1f} ns a step")
 
-    # K1: the next-line L2 pass of B's build (the largest K1 launch there).
-    prof = wl.profile
-    merged = _merge_prefetch_stream(prof, wl.nl_blocks, wl.nl_pos, None)["mblocks_s"]
-    a1 = k1_inputs([merged], cfg.l2.sets, cfg.l2.ways, dev)
-    n1, rows1 = a1[0].numel(), a1[1].numel() - 1
+    # K1: the largest of B's launches (by accesses), on its recorded inputs
+    a1 = max(k1_calls, key=lambda args: args[0].numel())
+    n1, rows1, ways1 = a1[0].numel(), a1[1].numel() - 1, a1[2].shape[1]
+    longest1 = int((a1[1][1:] - a1[1][:-1]).max())
     ms1, host1 = cuda_ms(lambda: lru_hits(*a1), dev, reps=5), enqueue_us(lambda: lru_hits(*a1), dev)
     plain1, ref1 = host_ms(lambda: lru_hits_plain(*a1), dev)
     e1 = max_err(lru_hits(*a1), ref1)
-    check(e1 == 0, f"K1 at main path B's shape: kernel != plain (max err {e1})")
+    check(e1 == 0, f"K1 at main path B's largest launch: kernel != plain (max err {e1})")
     errs["lru_hits"] = max(errs["lru_hits"], e1)
-    b1, by1 = bound(n1 * 5 + (rows1 + 1) * 8 + a1[2].numel() * 4 * 4,
-                    n1 * 2 * cfg.l2.ways)
+    b1, by1 = bound(n1 * 5 + (rows1 + 1) * 8 + a1[2].numel() * 4 * 4, n1 * 2 * ways1)
     out.append(dict(
         name="lru_hits", route="cuda",
         source="src/repro_torch/kernels/cache_sim/csrc/lru_hits.cu",
@@ -843,9 +913,12 @@ def time_kernels(wl, dev, errs, launches):
         launches=launches["lru_hits"], max_abs_err=errs["lru_hits"],
         matches_plain=errs["lru_hits"] == 0,
         ms=ms1, host_us=host1, plain_ms=plain1, bound_ms=b1, bound_by=by1, library_ms=None,
-        shape=f"{n1} accesses, {rows1} sets x {cfg.l2.ways} ways",
+        longest_row=longest1, ns_per_step=ms1 * 1e6 / longest1,
+        shape=f"{n1} accesses, {rows1} sets x {ways1} ways (the largest of B's launches)",
     ))
-    log(f"  lru_hits: {ms1:.3f} ms (plain {plain1:.1f} ms, bound {b1:.4f} ms)")
+    log(f"  lru_hits at B's largest launch: {ms1:.3f} ms (plain {plain1:.1f} ms, bound "
+        f"{b1:.4f} ms); {n1} accesses in {rows1} rows x {ways1} ways, the longest {longest1} "
+        f"steps: {ms1 * 1e6 / longest1:.1f} ns a step")
 
     # Ordered segment sum: B's push edge order.
     graph = make_dataset(wl.dataset)
@@ -885,10 +958,14 @@ def time_k1_launches(captured, dev):
     out = []
     for args in captured:
         ms = cuda_ms(lambda: lru_hits(*args), dev, reps=3)
+        longest = int((args[1][1:] - args[1][:-1]).max())
         out.append(dict(accesses=int(args[0].numel()), rows=int(args[2].shape[0]),
-                        ways=int(args[2].shape[1]), ms=ms))
+                        ways=int(args[2].shape[1]), ms=ms, longest_row=longest,
+                        ns_per_step=ms * 1e6 / longest))
         log(f"  lru_hits launch {len(out)}: {out[-1]['accesses']} accesses, "
-            f"{out[-1]['rows']} rows x {out[-1]['ways']} ways: {ms:.3f} ms")
+            f"{out[-1]['rows']} rows x {out[-1]['ways']} ways: {ms:.3f} ms, the longest row "
+            f"{longest} steps: {ms * 1e6 / longest:.1f} ns a step")
+    log(f"  lru_hits, B's {len(out)} launches: {sum(o['ms'] for o in out):.3f} ms in all")
     return out
 
 
@@ -1418,6 +1495,7 @@ def time_lm_kernels(keep, dev, errs, launches):
                     source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                     replaces="src/repro/kernels/ssd_scan/ssd_scan.py:61",
                     launches=launches["ssd_scan"], max_abs_err=errs["ssd_scan"],
+                    kernel_route=str(x.dtype)[6:],
                     path_f_max_abs_err=e_ssd, ms=ms, host_us=host, plain_ms=plain,
                     bound_ms=bnd, bound_by=by, library_ms=None,
                     shape=f"x ({bsz}, {s}, {h}, {p}) {str(x.dtype)[6:]}, B/C ({bsz}, {s}, {n}), "
@@ -1499,10 +1577,18 @@ def path_f(dev, run_path, errs, totals):
     rng = np.random.default_rng(PATH_F_SEED)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PATH_F_BATCH, PATH_F_PREFILL))
                                .astype(np.int32)).to(dev)
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+
     keep = {}
     torch.cuda.reset_peak_memory_stats(dev)
+    routes = dict(ssd_scan.routes)
     step, host = run_path("F prefill", lm, lambda: path_f_prefill(cfg, model, prompts, dev, keep),
                           exact=exact)
+    ran = {r: ssd_scan.routes[r] - routes[r] for r in routes}
+    check(ran == {"bfloat16": exact["ssd_scan"], "float32": 0},
+          f"path F prefill: K6 launches by route {ran}, expected all {exact['ssd_scan']} on the "
+          "bfloat16 tensor-core route")
+    log(f"  K6 launches by route on the prefill {json.dumps(ran)}")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     batch = {"tokens": prompts}
     ms = cuda_ms(lambda: step(model, batch), dev, reps=3)
@@ -1609,6 +1695,9 @@ def main() -> int:
                 gather_mod.amc_gather, gather_mod.amc_gather_segment_sum,
                 fa_mod.flash_attention, ssd_mod.ssd_scan)
     totals = {c.__name__: 0 for c in counters}
+    # launches by route, for the kernels that count them, on the paths only
+    route_totals = {c.__name__: dict.fromkeys(c.routes, 0) for c in counters
+                    if hasattr(c, "routes")}
 
     def run_path(name, expect, fn, exact=None):
         """Drive one path with every launch counter at 0; check that each
@@ -1616,6 +1705,7 @@ def main() -> int:
         add the counts to the totals."""
         for c in counters:
             c.launches = 0
+        routes0 = {c.__name__: dict(c.routes) for c in counters if hasattr(c, "routes")}
         result = fn()
         sync(dev)
         counts = {c.__name__: c.launches for c in counters}
@@ -1627,6 +1717,9 @@ def main() -> int:
                   f"expected {n}")
         for k, n in counts.items():
             totals[k] += n
+        for c in counters:
+            for r, n in getattr(c, "routes", {}).items():
+                route_totals[c.__name__][r] += n - routes0[c.__name__][r]
         return result
 
     phase("phase 1: build")
@@ -1684,7 +1777,7 @@ def main() -> int:
     log("  K2 == plain, cold and resumed")
 
     phase("phase 6: kernel times at main path B's shapes; each K1 launch of B")
-    kernels = time_kernels(wl_b, dev, errs, totals)
+    kernels = time_kernels(wl_b, dev, errs, totals, k1_calls)
     k1_entry = next(k for k in kernels if k["name"] == "lru_hits")
     k1_entry["per_launch_ms"] = time_k1_launches(k1_calls, dev)
     del wl_b, k1_calls
@@ -1726,7 +1819,13 @@ def main() -> int:
     kernels += path_f(dev, run_path, errs, totals)
     for k in kernels:
         k["launches"] = totals[k["name"]]
+        if k["name"] in route_totals:
+            k["launches_by_route"] = route_totals[k["name"]]
+            check(sum(route_totals[k["name"]].values()) == totals[k["name"]],
+                  f"{k['name']}: launches by route {route_totals[k['name']]} do not add up to "
+                  f"{totals[k['name']]}")
     log("  launches over all paths " + json.dumps(totals))
+    log("  launches by route over all paths " + json.dumps(route_totals))
     phase_t.append(time.perf_counter())
     log(f"  ({phase_t[-1] - phase_t[-2]:.1f} s)")
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

@@ -5,6 +5,8 @@ library with a plain C interface, loaded through ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries land in ``_build/`` beside
 this module, named by a hash of the source, the headers next to it and the
 flags, so an edited source rebuilds and an unchanged one is loaded as is.
+Headers shared by several kernels live in ``csrc/`` beside this module
+(``INCLUDE_DIR``, passed to ``nvcc`` with ``-I``) and are hashed too.
 Nothing is built when a module is imported: a wrapper loads its library
 when it first launches on a CUDA tensor.
 """
@@ -22,6 +24,7 @@ from typing import Dict, Iterable, List
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,10 +45,10 @@ def _nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """Where ``source`` builds to: keyed by the source, its sibling
-    headers and the compiler flags."""
+    headers, the shared headers and the compiler flags."""
     source = Path(source).resolve()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [source] + sorted(source.parent.glob("*.h")):
+    for f in [source] + sorted(source.parent.glob("*.h")) + sorted(INCLUDE_DIR.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
@@ -64,7 +67,7 @@ def build(sources: Iterable[Path]) -> Dict[str, float]:
     for src in todo:
         out = library_path(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(src)]
         procs.append((src, out, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     secs, errors = {}, []
@@ -114,4 +117,4 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-__all__ = ["BUILD_DIR", "build", "library_path", "load", "ptr", "ptxas_report", "stream_ptr"]
+__all__ = ["BUILD_DIR", "INCLUDE_DIR", "build", "library_path", "load", "ptr", "ptxas_report", "stream_ptr"]

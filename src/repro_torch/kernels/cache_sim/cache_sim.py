@@ -3,8 +3,10 @@
 Replaces the Pallas kernels ``repro/kernels/cache_sim/cache_sim.py``
 ``lru_hits`` / ``lru_hits_carry``.  The input is *ragged*: the stably
 set-sorted stream plus per-row offsets, one row per (stream, set).  On a
-CUDA tensor :func:`lru_hits` launches ``csrc/lru_hits.cu`` (one thread per
-row, state in registers); on a CPU tensor it runs :func:`lru_hits_plain`,
+CUDA tensor :func:`lru_hits` launches ``csrc/lru_hits.cu`` (G lanes per
+(stream, set) row, G the ways rounded up to a power of two, one way per
+lane; a batch of 4G accesses loaded a batch ahead into registers, hit bits
+stored 4 bytes at a time); on a CPU tensor it runs :func:`lru_hits_plain`,
 which pads the rows into a ``(max_len, rows)`` matrix and advances every
 row one access per step, as ``repro/memsim/engine.py::_batched_pass`` does.
 """
@@ -58,6 +60,8 @@ def lru_hits(blocks, offsets, tags, age):
     if blocks.device.type == "cpu":
         return lru_hits_plain(blocks, offsets, tags, age)
     rows, ways = tags.shape
+    if blocks.data_ptr() % 16:  # the kernel copies 16-byte chunks
+        blocks = blocks.clone()
     hits = torch.empty(blocks.shape[0], dtype=torch.uint8, device=blocks.device)
     tags_out = torch.empty_like(tags)
     age_out = torch.empty_like(age)

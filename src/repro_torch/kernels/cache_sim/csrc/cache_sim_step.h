@@ -93,6 +93,74 @@ CS_UNROLL
   }
 }
 
+// K1's lane-group walk (lru_hits.cu): a row of `ways` ways is walked by a
+// group of G lanes, G the ways rounded up to a power of two, 32 / G rows a
+// warp; lane `way` of a group holds that way's (tag, age) in registers
+// (lanes at or past `ways` hold tag -2 and age INT32_MAX and never hit or
+// win).  The group loads its row's accesses in batches of 4 G, lane `way`
+// the 4 at batch base + 4 way (one 16-byte load), one batch ahead of the
+// walk; batches are aligned to 4 G accesses from the row's first.  A step
+// takes the access from its lane by shuffle; a ballot of tag == b gives
+// the hit; the touched way is the lowest lane whose key
+// (lru_lane_key) equals the group's minimum (log2 G xor-shuffle rounds of
+// min, then a ballot); it takes tag b and age t unless b is a pad.  Lane
+// `way` keeps the hit bytes of its 4 accesses in one word and stores it
+// whole where all 4 lie in the row.
+
+// Lanes of the group that walks a row of `ways` ways.
+CS_HD int lru_group_lanes(int ways) {
+  return ways <= 1 ? 1 : ways <= 2 ? 2 : ways <= 4 ? 4 : ways <= 8 ? 8 : ways <= 16 ? 16 : 32;
+}
+
+// First access index of a row's batches (aligned to 4 G accesses, so that
+// every lane's 4 are one aligned 16-byte load), and the batches the row
+// [lo, hi) takes.
+CS_HD int64_t lru_batch_base(int64_t lo, int g) { return lo & ~(int64_t)(4 * g - 1); }
+CS_HD int lru_batches(int64_t lo, int64_t hi, int g) {
+  return hi > lo ? (int)((hi - lru_batch_base(lo, g) + 4 * g - 1) / (4 * g)) : 0;
+}
+
+// A lane's 4 accesses at a (a multiple of 4): zero past the row's end hi,
+// so nothing past the stream is read.
+CS_HD void lru_load4(const int32_t* blocks, int64_t a, int64_t hi, int32_t v[4]) {
+#if defined(__CUDA_ARCH__)
+  if (a + 4 <= hi) {
+    const int4 q = *reinterpret_cast<const int4*>(blocks + a);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    return;
+  }
+#endif
+CS_UNROLL
+  for (int e = 0; e < 4; ++e) v[e] = a + e < hi ? blocks[a + e] : 0;
+}
+
+// lru_step's key of one lane: INT32_MIN on a hit, else its age; lanes past
+// the set's ways never win.
+CS_HD int32_t lru_lane_key(bool real, int32_t tag, int32_t age, int32_t b) {
+  return !real ? CS_INT32_MAX : tag == b ? CS_INT32_MIN : age;
+}
+
+// Whether lane `way` is its group's touched way: the lowest lane of
+// `wins`, the group's ballot of key == minimum shifted to bit 0 (lru_step's
+// first lane on ties).
+CS_HD bool lru_lane_touched(uint32_t wins, int way) { return (wins & (0u - wins)) == (1u << way); }
+
+// Store lane's hit word (one byte per access, a..a+3) where those accesses
+// lie in [lo, hi): whole where all 4 do, byte by byte otherwise.
+CS_HD void lru_store_word(uint8_t* hits, int64_t a, int64_t lo, int64_t hi, uint32_t word) {
+  if (a >= lo && a + 4 <= hi) {
+#if defined(__CUDA_ARCH__)
+    *reinterpret_cast<uint32_t*>(hits + a) = word;
+#else
+    for (int e = 0; e < 4; ++e) hits[a + e] = (uint8_t)(word >> (8 * e));
+#endif
+    return;
+  }
+CS_UNROLL
+  for (int e = 0; e < 4; ++e)
+    if (a + e >= lo && a + e < hi) hits[a + e] = (uint8_t)(word >> (8 * e));
+}
+
 // K2's level table.  Level i of a K-level hierarchy has R_i = sets_i / G
 // relative sets of ways_i lanes per group; a group's row of that level is
 // R_i * ways_i lanes (relative set major), at tags[i] / age[i] + row * lanes.

@@ -1,8 +1,8 @@
 // Host driver of cache_sim_step.h, for the CPU tests only.
 //
 // Runs the same per-row functions the CUDA kernels run, one row after the
-// other (for K2's warp kernel, its 32 lanes emulated: ballots as loops,
-// shuffles as array reads), so a g++ build of this file checks the GPU's
+// other (for K1's and K2's warp kernels, their 32 lanes emulated: ballots
+// as loops, shuffles as array reads), so a g++ build of this file checks the GPU's
 // step logic bit for bit against the plain PyTorch versions and the JAX
 // package.  The port itself never loads this build.
 //
@@ -23,6 +23,87 @@ extern "C" int host_lru_hits(const int32_t* blocks, const int64_t* offsets,
                          tags_in + s, age_in + s, tags_out + s, age_out + s,
                          hits);
   }
+  return 0;
+}
+
+// lru_hits.cu's kernel for one warp, its 32 lanes emulated: 32 / G rows
+// from `row0`, each walked by a group of G lanes with one way a lane; the
+// shuffles read the source lane's registers, the ballots OR the lanes'
+// bits, and the xor-shuffle min rounds are the group's minimum (min is
+// exact in any order).  Loads, hit words and stores as the kernel's.
+static void host_lru_group_warp(const int32_t* blocks, const int64_t* offsets, int rows,
+                                int ways, int g, int64_t row0, const int32_t* tags_in,
+                                const int32_t* age_in, int32_t* tags_out, int32_t* age_out,
+                                uint8_t* hits) {
+  const int batch = 4 * g;
+  int64_t lo[32], hi[32];
+  bool real[32];
+  int32_t tag[32], age[32], cur[32][4], nxt[32][4];
+  int batches = 0;
+  for (int lane = 0; lane < 32; ++lane) {
+    const int grp = lane / g, way = lane % g;
+    const int64_t row = row0 + grp;
+    const bool has = row < rows;
+    lo[lane] = has ? offsets[row] : 0;
+    hi[lane] = has ? offsets[row + 1] : 0;
+    real[lane] = has && way < ways;
+    tag[lane] = real[lane] ? tags_in[row * ways + way] : -2;
+    age[lane] = real[lane] ? age_in[row * ways + way] : CS_INT32_MAX;
+    const int nb = lru_batches(lo[lane], hi[lane], g);
+    batches = nb > batches ? nb : batches;
+    lru_load4(blocks, lru_batch_base(lo[lane], g) + 4 * way, hi[lane], cur[lane]);
+  }
+  for (int k = 0; k < batches; ++k) {
+    uint32_t word[32] = {0};
+    for (int lane = 0; lane < 32; ++lane)
+      lru_load4(blocks, lru_batch_base(lo[lane], g) + (int64_t)(k + 1) * batch + 4 * (lane % g),
+                hi[lane], nxt[lane]);
+    for (int j = 0; j < batch; ++j)
+      for (int grp = 0; grp < 32 / g; ++grp) {
+        const int l0 = grp * g;
+        const int32_t b = cur[l0 + j / 4][j & 3];  // __shfl_sync from lane j / 4 of the group
+        const int64_t i = lru_batch_base(lo[l0], g) + (int64_t)k * batch + j;
+        bool hit = false;
+        int32_t key[32], m = CS_INT32_MAX;
+        for (int w = 0; w < g; ++w) {
+          hit = hit || (real[l0 + w] && tag[l0 + w] == b);
+          key[w] = lru_lane_key(real[l0 + w], tag[l0 + w], age[l0 + w], b);
+          m = key[w] < m ? key[w] : m;
+        }
+        uint32_t wins = 0;
+        for (int w = 0; w < g; ++w)
+          if (key[w] == m) wins |= 1u << w;
+        for (int w = 0; w < g; ++w) {
+          const int lane = l0 + w;
+          if (i >= lo[lane] && i < hi[lane] && b >= 0 && lru_lane_touched(wins, w)) {
+            tag[lane] = b;
+            age[lane] = (int32_t)(i - lo[lane] + 1);
+          }
+          if (w == j / 4) word[lane] |= (uint32_t)hit << (8 * (j & 3));
+        }
+      }
+    for (int lane = 0; lane < 32; ++lane) {
+      lru_store_word(hits, lru_batch_base(lo[lane], g) + (int64_t)k * batch + 4 * (lane % g),
+                     lo[lane], hi[lane], word[lane]);
+      for (int e = 0; e < 4; ++e) cur[lane][e] = nxt[lane][e];
+    }
+  }
+  for (int lane = 0; lane < 32; ++lane)
+    if (real[lane]) {
+      const int64_t row = row0 + lane / g;
+      tags_out[row * ways + lane % g] = tag[lane];
+      age_out[row * ways + lane % g] = age[lane];
+    }
+}
+
+extern "C" int host_lru_hits_group(const int32_t* blocks, const int64_t* offsets, int rows,
+                                   int ways, const int32_t* tags_in, const int32_t* age_in,
+                                   int32_t* tags_out, int32_t* age_out, uint8_t* hits) {
+  if (ways < 1 || ways > CS_MAX_WAYS) return 1;
+  const int g = lru_group_lanes(ways);
+  for (int64_t row0 = 0; row0 < rows; row0 += 32 / g)
+    host_lru_group_warp(blocks, offsets, rows, ways, g, row0, tags_in, age_in, tags_out, age_out,
+                        hits);
   return 0;
 }
 

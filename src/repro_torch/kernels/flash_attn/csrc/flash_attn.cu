@@ -24,7 +24,7 @@
 // that each K and V fragment serves two mma, and one at hd 128, where two
 // would not fit the registers (FA_TC_STRIPS).  The block's Q tile and a
 // two-stage ring of 64-key K and V tiles sit in dynamic shared memory as
-// bf16, XOR-swizzled (fa_swizzle) so that ldmatrix is free of bank
+// bf16, XOR-swizzled (tc_swizzle) so that ldmatrix is free of bank
 // conflicts; cp.async brings tile t + 1 while tile t is multiplied.  Q is
 // scaled in bf16 and held in registers as mma A fragments.  S = Q K^T is
 // mma.sync m16n8k16 bf16 -> float32 (bf16 products are exact in float32,
@@ -147,46 +147,6 @@ constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int TC_NT = TC_BK / 8;  // key n-tiles of a strip's S
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, asynchronously; zero-filled when
-// `valid` is false (src is then not read).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a b on one m16n8k16 tile: bf16 a (4 registers), b (2), float32 c.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Copy `rows` rows of hd bf16 values, starting at sequence position pos0,
 // into a swizzled tile; rows at or past `limit` are zero-filled.
 template <int HD>
@@ -198,7 +158,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat
     const int r = idx / CPR, c = idx % CPR;
     const bool valid = pos0 + r < limit;
     const __nv_bfloat16* src = base + (valid ? (pos0 + r) * row_stride : 0) + c * 8;
-    cp_async_16(smem_u32(tile + fa_smem_off(r, c * 8, HD)), src, valid);
+    cp_async_16(smem_u32(tile + tc_smem_off(r, c * 8, HD)), src, valid);
   }
 }
 
@@ -244,12 +204,12 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       int r, c;
-      fa_ldm_q(lane, row0 + 16 * ms, kk, &r, &c);
-      ldmatrix_x4(qf[ms][kk], smem_u32(qs + fa_smem_off(r, c, HD)));
+      tc_ldm_a(lane, row0 + 16 * ms, kk, &r, &c);
+      ldmatrix_x4(qf[ms][kk], smem_u32(qs + tc_smem_off(r, c, HD)));
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        qf[ms][kk][i] = fa_pack_bf16x2(fa_scale_q(fa_unpack_lo(qf[ms][kk][i]), scale, 1),
-                                       fa_scale_q(fa_unpack_hi(qf[ms][kk][i]), scale, 1));
+        qf[ms][kk][i] = tc_pack_bf16x2(fa_scale_q(tc_unpack_lo(qf[ms][kk][i]), scale, 1),
+                                       fa_scale_q(tc_unpack_hi(qf[ms][kk][i]), scale, 1));
     }
 
   float acc[MS][DT][4];
@@ -293,8 +253,8 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int np = 0; np < TC_NT / 2; ++np) {
         int r, c;
         uint32_t kb[4];
-        fa_ldm_k(lane, np, kk, &r, &c);
-        ldmatrix_x4(kb, smem_u32(ks + fa_smem_off(r, c, HD)));
+        tc_ldm_b(lane, np, kk, &r, &c);
+        ldmatrix_x4(kb, smem_u32(ks + tc_smem_off(r, c, HD)));
 #pragma unroll
         for (int ms = 0; ms < MS; ++ms) {
           mma_bf16(s[ms] + 8 * np, qf[ms][kk], kb[0], kb[1]);
@@ -335,8 +295,8 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int dp = 0; dp < DT / 2; ++dp) {
         int r, c;
         uint32_t vb[4];
-        fa_ldm_v(lane, j, dp, &r, &c);
-        ldmatrix_x4_trans(vb, smem_u32(vs + fa_smem_off(r, c, HD)));
+        tc_ldm_bt(lane, j, dp, &r, &c);
+        ldmatrix_x4_trans(vb, smem_u32(vs + tc_smem_off(r, c, HD)));
 #pragma unroll
         for (int ms = 0; ms < MS; ++ms) {
           mma_bf16(acc[ms][2 * dp], a_hi[ms][j], vb[0], vb[1]);
@@ -363,11 +323,11 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int d = 0; d < DT; ++d)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 16 * ms + fa_c_row(lane, 2 * r);
-        const int col = 8 * d + fa_c_col(lane, 0);
-        const float x0 = fa_round_bf16(fa_finish(acc[ms][d][2 * r], l[r]));
-        const float x1 = fa_round_bf16(fa_finish(acc[ms][d][2 * r + 1], l[r]));
-        *reinterpret_cast<uint32_t*>(qs + fa_smem_off(row, col, HD)) = fa_pack_bf16x2(x0, x1);
+        const int row = row0 + 16 * ms + tc_c_row(lane, 2 * r);
+        const int col = 8 * d + tc_c_col(lane, 0);
+        const float x0 = tc_round_bf16(fa_finish(acc[ms][d][2 * r], l[r]));
+        const float x1 = tc_round_bf16(fa_finish(acc[ms][d][2 * r + 1], l[r]));
+        *reinterpret_cast<uint32_t*>(qs + tc_smem_off(row, col, HD)) = tc_pack_bf16x2(x0, x1);
       }
   }
   __syncwarp();
@@ -377,7 +337,7 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const int64_t qi = q0 + r;
     if (qi < sq)
       *reinterpret_cast<uint4*>(o + ((b * sq + qi) * h + head) * HD + c * 8) =
-          *reinterpret_cast<const uint4*>(qs + fa_smem_off(r, c * 8, HD));
+          *reinterpret_cast<const uint4*>(qs + tc_smem_off(r, c * 8, HD));
   }
 }
 

@@ -19,6 +19,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "tc_frag.h"
+
 #if defined(__CUDACC__)
 #define FA_HD __host__ __device__ __forceinline__
 #define FA_UNROLL _Pragma("unroll")
@@ -28,30 +30,6 @@
 #endif
 
 #define FA_NEG_INF (-1e30f)
-#define FA_LOG2E 1.4426950408889634f
-
-#if defined(__CUDACC__)
-#include <cuda_bf16.h>
-#endif
-
-// Round a float to the nearest bfloat16 (ties to even), kept as a float.
-FA_HD float fa_round_bf16(float x) {
-  uint32_t u;
-#if defined(__CUDA_ARCH__)
-  u = __float_as_uint(x);
-#else
-  memcpy(&u, &x, 4);
-#endif
-  if ((u & 0x7f800000u) == 0x7f800000u) return x;  // inf / nan
-  u += 0x7fffu + ((u >> 16) & 1u);
-  u &= 0xffff0000u;
-#if defined(__CUDA_ARCH__)
-  return __uint_as_float(u);
-#else
-  memcpy(&x, &u, 4);
-  return x;
-#endif
-}
 
 // blocked_attention's query scaling: `(q * scale)` in the input dtype, then
 // float32.  For bfloat16 inputs the scale is rounded to bfloat16 first (the
@@ -60,7 +38,7 @@ FA_HD float fa_round_bf16(float x) {
 // power of two (hd = 64) and differ by a rounding for hd = 32 and 128.
 FA_HD float fa_scale_q(float q, float scale, int is_bf16) {
   const float v = q * scale;
-  return is_bf16 ? fa_round_bf16(v) : v;
+  return is_bf16 ? tc_round_bf16(v) : v;
 }
 
 // Whether query position qpos may attend to key position kpos.
@@ -135,104 +113,13 @@ FA_HD float fa_finish(float acc, float l) { return acc / (l > 1e-30f ? l : 1e-30
 // ------------------------------------------------------------------------
 // The bfloat16 route: one warp owns strips of 16 query rows and runs
 // mma.sync.m16n8k16 (bf16 inputs, float32 accumulators) on fragments that
-// ldmatrix brings from shared memory.  Lane l's fragment elements follow
-// the PTX ISA's layout for m16n8k16 with g = l / 4 and t = l % 4:
-//
-//   A (16 x 16, row-major), element i < 8 of 4 registers:
-//     row g + 8 * ((i / 2) % 2), column 2t + i % 2 + 8 * (i / 4)
-//   B (16 x 8, k x n), element i < 4 of 2 registers:
-//     k = 2t + i % 2 + 8 * (i / 2), n = g
-//   C / D (16 x 8 float32), element i < 4:
-//     row g + 8 * (i / 2), column 2t + i % 2
-//
-// A register holds two bf16 values, the lower column in its low half.
+// ldmatrix brings from shared memory; the fragment maps, the swizzle, the
+// ldmatrix addresses and the bf16 split are tc_frag.h's.
 
 // 16-row strips a warp owns in the bfloat16 kernel (4 warps a block): two
 // at hd <= 64, so that every K and V fragment from shared memory serves
 // two mma, and one at hd 128, where two would not fit the registers.
 #define FA_TC_STRIPS(hd) ((hd) <= 64 ? 2 : 1)
-
-FA_HD int fa_a_row(int lane, int i) { return lane / 4 + 8 * ((i / 2) % 2); }
-FA_HD int fa_a_col(int lane, int i) { return 2 * (lane % 4) + i % 2 + 8 * (i / 4); }
-FA_HD int fa_b_k(int lane, int i) { return 2 * (lane % 4) + i % 2 + 8 * (i / 2); }
-FA_HD int fa_b_n(int lane, int i) { return lane / 4; }
-FA_HD int fa_c_row(int lane, int i) { return lane / 4 + 8 * (i / 2); }
-FA_HD int fa_c_col(int lane, int i) { return 2 * (lane % 4) + i % 2; }
-
-FA_HD uint32_t fa_f32_bits(float x) {
-#if defined(__CUDA_ARCH__)
-  return __float_as_uint(x);
-#else
-  uint32_t u;
-  memcpy(&u, &x, 4);
-  return u;
-#endif
-}
-
-FA_HD float fa_bits_f32(uint32_t u) {
-#if defined(__CUDA_ARCH__)
-  return __uint_as_float(u);
-#else
-  float x;
-  memcpy(&x, &u, 4);
-  return x;
-#endif
-}
-
-// Two floats that are already bfloat16 values, packed into one register:
-// `lo` (the lower column) in bits 0-15, `hi` in bits 16-31.
-FA_HD uint32_t fa_pack_bf16x2(float lo, float hi) {
-  return (fa_f32_bits(lo) >> 16) | (fa_f32_bits(hi) & 0xffff0000u);
-}
-FA_HD float fa_unpack_lo(uint32_t r) { return fa_bits_f32(r << 16); }
-FA_HD float fa_unpack_hi(uint32_t r) { return fa_bits_f32(r & 0xffff0000u); }
-
-// P = hi + lo with both parts bfloat16: hi = bf16(p), lo = bf16(p - hi).
-// p - hi is exact in float32, so hi + lo differs from p by at most half a
-// bfloat16 step of p - hi: about 2^-17 of p, and never more than 2^-134
-// (half of bfloat16's finest subnormal step) where p is that small.
-FA_HD void fa_split_bf16(float p, float* hi, float* lo) {
-  *hi = fa_round_bf16(p);
-  *lo = fa_round_bf16(p - *hi);
-}
-
-// Shared-memory layout of a (rows x hd) bf16 tile: rows of hd values,
-// each row cut into hd / 8 chunks of 16 bytes whose order is XOR-swizzled
-// by the row, so that the 8 row addresses of one ldmatrix (8 rows, one
-// chunk column) fall into 8 different 16-byte bank groups of a 128-byte
-// line.  Rows of 8 or more chunks swizzle by row % 8; rows of 4 chunks
-// (hd 32, two rows a line) by (row / 2) % 4.
-FA_HD int fa_swizzle(int row, int chunk, int chunks_per_row) {
-  return chunks_per_row >= 8 ? chunk ^ (row & 7) : chunk ^ ((row >> 1) & 3);
-}
-
-// Element offset of (row, col) in such a tile.
-FA_HD int fa_smem_off(int row, int col, int hd) {
-  return row * hd + fa_swizzle(row, col / 8, hd / 8) * 8 + col % 8;
-}
-
-// The row and column whose 16-byte row segment lane `lane` addresses in
-// each ldmatrix.x4 of the kernel (lanes 8m .. 8m + 7 give matrix m's 8
-// rows).
-//  Q, A fragments of k-step kk for the strip starting at row `row0`:
-//    matrices (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-//    = registers a0..a3.
-FA_HD void fa_ldm_q(int lane, int row0, int kk, int* row, int* col) {
-  *row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  *col = kk * 16 + (lane >> 4) * 8;
-}
-//  K, B fragments of k-step kk for the key n-tiles 2 np and 2 np + 1:
-//    b0, b1 of n-tile 2 np, then b0, b1 of n-tile 2 np + 1.
-FA_HD void fa_ldm_k(int lane, int np, int kk, int* row, int* col) {
-  *row = np * 16 + (lane & 7) + (lane >> 4) * 8;
-  *col = kk * 16 + ((lane >> 3) & 1) * 8;
-}
-//  V (with .trans), B fragments of key k-step j for the dimension n-tiles
-//    2 dp and 2 dp + 1: b0, b1 of n-tile 2 dp, then of 2 dp + 1.
-FA_HD void fa_ldm_v(int lane, int j, int dp, int* row, int* col) {
-  *row = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  *col = dp * 16 + (lane >> 4) * 8;
-}
 
 // Whether a tile of query positions [qpos0, qpos0 + nq) against key
 // positions [kpos0, kpos0 + nk) needs the mask: false only if fa_allowed
@@ -250,14 +137,14 @@ FA_HD bool fa_tile_needs_mask(int64_t qpos0, int64_t nq, int64_t kpos0, int64_t 
 FA_HD int64_t fa_tile_order(int64_t i, int64_t n) { return n - 1 - i; }
 
 // Mask one strip's score fragments (nt n-tiles of 4 accumulators): lane
-// `lane` holds rows `qpos_row0` + fa_c_row and keys `kpos0` + 8 n +
-// fa_c_col.
+// `lane` holds rows `qpos_row0` + tc_c_row and keys `kpos0` + 8 n +
+// tc_c_col.
 template <int NT>
 FA_HD void fa_frag_mask(float* s, int lane, int64_t qpos_row0, int64_t kpos0,
                         int64_t skv, int causal, int64_t window) {
   FA_UNROLL for (int n = 0; n < NT; ++n)
     FA_UNROLL for (int i = 0; i < 4; ++i)
-      if (!fa_allowed(qpos_row0 + fa_c_row(lane, i), kpos0 + 8 * n + fa_c_col(lane, i), skv,
+      if (!fa_allowed(qpos_row0 + tc_c_row(lane, i), kpos0 + 8 * n + tc_c_col(lane, i), skv,
                       causal, window))
         s[4 * n + i] = FA_NEG_INF;
 }
@@ -271,18 +158,6 @@ FA_HD void fa_frag_rowmax(const float* s, float mx[2]) {
       const float x = s[4 * n + i];
       mx[i / 2] = x > mx[i / 2] ? x : mx[i / 2];
     }
-}
-
-// 2^x: the card's ex2.approx (relative error about 2^-22, subnormal
-// results flushed to 0), exp2f on the host.
-FA_HD float fa_exp2(float x) {
-#if defined(__CUDA_ARCH__)
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#else
-  return exp2f(x);
-#endif
 }
 
 // The online-softmax step of a strip once `mx` holds each row's maximum
@@ -300,12 +175,12 @@ FA_HD void fa_frag_update(float* s, float m[2], const float mx[2], float lpart[2
   float m_new[2];
   FA_UNROLL for (int r = 0; r < 2; ++r) {
     m_new[r] = mx[r] > m[r] ? mx[r] : m[r];
-    corr[r] = fa_exp2((m[r] - m_new[r]) * FA_LOG2E);
+    corr[r] = tc_exp2((m[r] - m_new[r]) * TC_LOG2E);
   }
   float ps[2] = {0.0f, 0.0f};
   FA_UNROLL for (int n = 0; n < NT; ++n)
     FA_UNROLL for (int i = 0; i < 4; ++i) {
-      const float p = fa_exp2((s[4 * n + i] - m_new[i / 2]) * FA_LOG2E);
+      const float p = tc_exp2((s[4 * n + i] - m_new[i / 2]) * TC_LOG2E);
       s[4 * n + i] = p;
       ps[i / 2] += p;
     }
@@ -319,29 +194,10 @@ FA_HD void fa_frag_update(float* s, float m[2], const float mx[2], float lpart[2
 // the accumulators of key n-tiles 2 j (`c0`) and 2 j + 1 (`c1`), split
 // into bf16 parts: a0 = c0[0..1], a1 = c0[2..3], a2 = c1[0..1],
 // a3 = c1[2..3].
-// fa_split_bf16 of two values, packed as registers of two bf16 (x0 in the
-// low half).  On the card each rounding is one cvt.rn.bf16x2.f32, which
-// rounds as fa_round_bf16 does.
-FA_HD void fa_split_pack(float x0, float x1, uint32_t* hi, uint32_t* lo) {
-#if defined(__CUDA_ARCH__)
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
-  *hi = *reinterpret_cast<const uint32_t*>(&h);
-  *lo = *reinterpret_cast<const uint32_t*>(&l);
-#else
-  float h0, l0, h1, l1;
-  fa_split_bf16(x0, &h0, &l0);
-  fa_split_bf16(x1, &h1, &l1);
-  *hi = fa_pack_bf16x2(h0, h1);
-  *lo = fa_pack_bf16x2(l0, l1);
-#endif
-}
-
 FA_HD void fa_p_fragments(const float* c0, const float* c1, uint32_t a_hi[4],
                           uint32_t a_lo[4]) {
-  fa_split_pack(c0[0], c0[1], &a_hi[0], &a_lo[0]);
-  fa_split_pack(c0[2], c0[3], &a_hi[1], &a_lo[1]);
-  fa_split_pack(c1[0], c1[1], &a_hi[2], &a_lo[2]);
-  fa_split_pack(c1[2], c1[3], &a_hi[3], &a_lo[3]);
+  tc_split_pack(c0[0], c0[1], &a_hi[0], &a_lo[0]);
+  tc_split_pack(c0[2], c0[3], &a_hi[1], &a_lo[1]);
+  tc_split_pack(c1[0], c1[1], &a_hi[2], &a_lo[2]);
+  tc_split_pack(c1[2], c1[3], &a_hi[3], &a_lo[3]);
 }

@@ -12,18 +12,19 @@
 // time with a warp's 32 lanes emulated on the host, in the kernel's query
 // blocks (FA_TC_STRIPS) and tile order.  Tiles are laid out in shared-memory images with
 // the kernel's swizzle, ldmatrix is emulated from the lanes' row
-// addresses (fa_ldm_q / _k / _v), each mma.sync is a plain loop over the
-// PTX fragment layout (fa_a_*, fa_b_*, fa_c_*), and the shuffles are
+// addresses (tc_ldm_a / _k / _v), each mma.sync is a plain loop over the
+// PTX fragment layout (tc_a_*, tc_b_*, tc_c_*), and the shuffles are
 // butterflies over the emulated lanes; masks, softmax step, P's hi / lo
 // split and the output staging are the header's.  With split = 0, lo is
 // dropped (one bf16 rounding of P), for the tests that show what the split
 // is for.  The port itself never loads this build.
 //
-//   g++ -O2 -std=c++17 -shared -fPIC -o libflash_attn_host.so host_step_test.cpp
+//   g++ -O2 -std=c++17 -shared -fPIC -I ../../csrc -o libflash_attn_host.so host_step_test.cpp
 #include <set>
 #include <vector>
 
 #include "flash_attn_step.h"
+#include "tc_emulate.h"
 
 extern "C" int host_flash_attn(const float* q, const float* k, const float* v,
                                float* o, int64_t b, int64_t sq, int64_t skv,
@@ -72,46 +73,10 @@ namespace {
 
 constexpr int kBK = 64, kWarps = 4, kNT = kBK / 8;
 
-// One ldmatrix.x4 from a tile image: lanes 8 m .. 8 m + 7 address matrix
-// m's rows; lane l receives, in register m, the elements (l / 4, 2 (l % 4))
-// and (l / 4, 2 (l % 4) + 1) of matrix m, or of its transpose with `trans`.
-// addr(lane, &row, &col) gives a lane's row segment.
 template <typename Addr>
 void ldmatrix_x4(const std::vector<float>& tile, int hd, bool trans, Addr addr,
                  float frag[32][4][2]) {
-  int row[32], col[32];
-  for (int l = 0; l < 32; ++l) addr(l, &row[l], &col[l]);
-  for (int l = 0; l < 32; ++l)
-    for (int m = 0; m < 4; ++m)
-      for (int e = 0; e < 2; ++e) {
-        int r = l / 4, c = 2 * (l % 4) + e;
-        if (trans) std::swap(r, c);
-        const int src = 8 * m + r;  // the lane that addressed this row
-        frag[l][m][e] = tile[fa_smem_off(row[src], col[src] + c, hd)];
-      }
-}
-
-// c += a b for one m16n8k16 tile held as fragments: a[lane][reg][half]
-// (registers a0..a3), b[lane][reg][half] (b0, b1), c[lane][i].
-void mma(float c[32][4], const float a[32][4][2], const float b[32][2][2]) {
-  float A[16][16], B[16][8];
-  for (int l = 0; l < 32; ++l) {
-    for (int i = 0; i < 8; ++i) A[fa_a_row(l, i)][fa_a_col(l, i)] = a[l][i / 2][i % 2];
-    for (int i = 0; i < 4; ++i) B[fa_b_k(l, i)][fa_b_n(l, i)] = b[l][i / 2][i % 2];
-  }
-  for (int l = 0; l < 32; ++l)
-    for (int i = 0; i < 4; ++i) {
-      float sum = c[l][i];
-      for (int kk = 0; kk < 16; ++kk) sum += A[fa_c_row(l, i)][kk] * B[kk][fa_c_col(l, i)];
-      c[l][i] = sum;
-    }
-}
-
-void unpack(const uint32_t r[4], float out[4][2]) {
-  for (int i = 0; i < 4; ++i) {
-    out[i][0] = fa_unpack_lo(r[i]);
-    out[i][1] = fa_unpack_hi(r[i]);
-  }
+  tce_ldmatrix_x4(tile.data(), hd, trans, addr, frag);
 }
 
 }  // namespace
@@ -131,7 +96,7 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
                   int64_t limit, int rows) {
     for (int r = 0; r < rows; ++r)
       for (int c = 0; c < hd; ++c)
-        tile[fa_smem_off(r, c, hd)] = pos0 + r < limit ? base[(pos0 + r) * stride + c] : 0.0f;
+        tile[tc_smem_off(r, c, hd)] = pos0 + r < limit ? base[(pos0 + r) * stride + c] : 0.0f;
   };
   for (int64_t bi = 0; bi < b; ++bi)
     for (int head = 0; head < h; ++head) {
@@ -155,7 +120,7 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
           for (int kk = 0; kk < KS; ++kk) {
             float f[32][4][2];
             ldmatrix_x4(qs, hd, false,
-                        [&](int l, int* r, int* c) { fa_ldm_q(l, row0, kk, r, c); }, f);
+                        [&](int l, int* r, int* c) { tc_ldm_a(l, row0, kk, r, c); }, f);
             for (int l = 0; l < 32; ++l)
               for (int i = 0; i < 8; ++i)
                 qf[(l * KS + kk) * 8 + i] = fa_scale_q(f[l][i / 2][i % 2], scale, 1);
@@ -174,7 +139,7 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
               for (int np = 0; np < kNT / 2; ++np) {
                 float kb[32][4][2], a[32][4][2], b0[32][2][2], b1[32][2][2];
                 ldmatrix_x4(ks, hd, false,
-                            [&](int l, int* r, int* c) { fa_ldm_k(l, np, kk, r, c); }, kb);
+                            [&](int l, int* r, int* c) { tc_ldm_b(l, np, kk, r, c); }, kb);
                 float c0[32][4], c1[32][4];
                 for (int l = 0; l < 32; ++l) {
                   for (int i = 0; i < 8; ++i) a[l][i / 2][i % 2] = qf[(l * KS + kk) * 8 + i];
@@ -188,8 +153,8 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
                     c1[l][i] = s[l][8 * np + 4 + i];
                   }
                 }
-                mma(c0, a, b0);
-                mma(c1, a, b1);
+                tce_mma(c0, a, b0);
+                tce_mma(c1, a, b1);
                 for (int l = 0; l < 32; ++l)
                   for (int i = 0; i < 4; ++i) {
                     s[l][8 * np + i] = c0[l][i];
@@ -219,15 +184,15 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
               for (int l = 0; l < 32; ++l) {
                 uint32_t rh[4], rl[4];
                 fa_p_fragments(&s[l][8 * j], &s[l][8 * j + 4], rh, rl);
-                unpack(rh, ahi[l]);
-                unpack(rl, alo[l]);
+                tce_unpack(rh, ahi[l]);
+                tce_unpack(rl, alo[l]);
                 if (!split)
                   for (int r = 0; r < 4; ++r) alo[l][r][0] = alo[l][r][1] = 0.0f;
               }
               for (int dp = 0; dp < DT / 2; ++dp) {
                 float vb[32][4][2];
                 ldmatrix_x4(vs, hd, true,
-                            [&](int l, int* r, int* c) { fa_ldm_v(l, j, dp, r, c); }, vb);
+                            [&](int l, int* r, int* c) { tc_ldm_bt(l, j, dp, r, c); }, vb);
                 for (int half = 0; half < 2; ++half) {
                   float bb[32][2][2], c[32][4];
                   const int d = 2 * dp + half;
@@ -236,8 +201,8 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
                       for (int e = 0; e < 2; ++e) bb[l][r][e] = vb[l][2 * half + r][e];
                     for (int i = 0; i < 4; ++i) c[l][i] = acc[(l * DT + d) * 4 + i];
                   }
-                  mma(c, ahi, bb);
-                  mma(c, alo, bb);
+                  tce_mma(c, ahi, bb);
+                  tce_mma(c, alo, bb);
                   for (int l = 0; l < 32; ++l)
                     for (int i = 0; i < 4; ++i) acc[(l * DT + d) * 4 + i] = c[l][i];
                 }
@@ -257,14 +222,14 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
           for (int l = 0; l < 32; ++l)
             for (int d = 0; d < DT; ++d)
               for (int i = 0; i < 4; ++i) {
-                const int row = row0 + fa_c_row(l, i), col = 8 * d + fa_c_col(l, i);
-                qs[fa_smem_off(row, col, hd)] =
-                    fa_round_bf16(fa_finish(acc[(l * DT + d) * 4 + i], l4[l][i / 2]));
+                const int row = row0 + tc_c_row(l, i), col = 8 * d + tc_c_col(l, i);
+                qs[tc_smem_off(row, col, hd)] =
+                    tc_round_bf16(fa_finish(acc[(l * DT + d) * 4 + i], l4[l][i / 2]));
               }
           for (int r = row0; r < row0 + 16; ++r)
             if (q0 + r < sq)
               for (int c = 0; c < hd; ++c)
-                o[((bi * sq + q0 + r) * h + head) * hd + c] = qs[fa_smem_off(r, c, hd)];
+                o[((bi * sq + q0 + r) * h + head) * hd + c] = qs[tc_smem_off(r, c, hd)];
         }
       }
       if ((int64_t)seen.size() != ntiles) return 2;
@@ -275,7 +240,7 @@ extern "C" int host_flash_attn_tc(const float* q, const float* k, const float* v
 // The header's small functions, one by one, for the tests of their
 // contracts.
 extern "C" void host_split_bf16(const float* p, float* hi, float* lo, int64_t n) {
-  for (int64_t i = 0; i < n; ++i) fa_split_bf16(p[i], &hi[i], &lo[i]);
+  for (int64_t i = 0; i < n; ++i) tc_split_bf16(p[i], &hi[i], &lo[i]);
 }
 
 extern "C" int64_t host_tile_order(int64_t i, int64_t n) { return fa_tile_order(i, n); }
@@ -294,11 +259,11 @@ extern "C" int host_allowed(int64_t qpos, int64_t kpos, int64_t skv, int causal,
 // C (32 x 4), written in that order into rc (2 ints each).
 extern "C" void host_fragment_maps(int* rc) {
   for (int l = 0; l < 32; ++l)
-    for (int i = 0; i < 8; ++i, rc += 2) rc[0] = fa_a_row(l, i), rc[1] = fa_a_col(l, i);
+    for (int i = 0; i < 8; ++i, rc += 2) rc[0] = tc_a_row(l, i), rc[1] = tc_a_col(l, i);
   for (int l = 0; l < 32; ++l)
-    for (int i = 0; i < 4; ++i, rc += 2) rc[0] = fa_b_k(l, i), rc[1] = fa_b_n(l, i);
+    for (int i = 0; i < 4; ++i, rc += 2) rc[0] = tc_b_k(l, i), rc[1] = tc_b_n(l, i);
   for (int l = 0; l < 32; ++l)
-    for (int i = 0; i < 4; ++i, rc += 2) rc[0] = fa_c_row(l, i), rc[1] = fa_c_col(l, i);
+    for (int i = 0; i < 4; ++i, rc += 2) rc[0] = tc_c_row(l, i), rc[1] = tc_c_col(l, i);
 }
 
 // Byte offsets in a tile of hd bf16 columns of the 32 row segments that
@@ -308,14 +273,14 @@ extern "C" int host_ldmatrix_offsets(int hd, int* out) {
   int n = 0, r, c;
   for (int kk = 0; kk < hd / 16; ++kk)
     for (int strip = 0; strip < kWarps * FA_TC_STRIPS(hd); ++strip)
-      for (int l = 0; l < 32; ++l) fa_ldm_q(l, 16 * strip, kk, &r, &c), out[n++] = 2 * fa_smem_off(r, c, hd);
+      for (int l = 0; l < 32; ++l) tc_ldm_a(l, 16 * strip, kk, &r, &c), out[n++] = 2 * tc_smem_off(r, c, hd);
   for (int np = 0; np < kNT / 2; ++np)
     for (int kk = 0; kk < hd / 16; ++kk)
-      for (int l = 0; l < 32; ++l) fa_ldm_k(l, np, kk, &r, &c), out[n++] = 2 * fa_smem_off(r, c, hd);
+      for (int l = 0; l < 32; ++l) tc_ldm_b(l, np, kk, &r, &c), out[n++] = 2 * tc_smem_off(r, c, hd);
   for (int j = 0; j < kNT / 2; ++j)
     for (int dp = 0; dp < hd / 16; ++dp)
-      for (int l = 0; l < 32; ++l) fa_ldm_v(l, j, dp, &r, &c), out[n++] = 2 * fa_smem_off(r, c, hd);
+      for (int l = 0; l < 32; ++l) tc_ldm_bt(l, j, dp, &r, &c), out[n++] = 2 * tc_smem_off(r, c, hd);
   return n;
 }
 
-extern "C" int host_smem_off(int row, int col, int hd) { return fa_smem_off(row, col, hd); }
+extern "C" int host_smem_off(int row, int col, int hd) { return tc_smem_off(row, col, hd); }

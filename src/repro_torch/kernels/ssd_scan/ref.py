@@ -11,6 +11,9 @@ change: the intra-chunk decay ``exp(cum_t - cum_s)`` is taken only where
 at long chunks (zamba2's 256, with dt ~ 0.8 and a = -1) it overflows to
 inf, and ``inf * 0`` makes y NaN.  Wherever the reference is finite the two
 agree.  The K6 wrapper runs ``ssd_chunked_plain`` on CPU tensors.
+``ssd_three_pass_plain`` computes the same function in the order of the
+CUDA kernels' three passes (``csrc/ssd_step.h``); the tests hold it
+against the other two.  Neither is on the main path.
 """
 from __future__ import annotations
 
@@ -94,4 +97,56 @@ def ssd_chunked_plain(
     return y.to(x.dtype), state
 
 
-__all__ = ["ssd_chunked_plain", "ssd_naive"]
+def ssd_three_pass_plain(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    a: torch.Tensor,  # (H,)
+    b_proj: torch.Tensor,  # (B, S, N)
+    c_proj: torch.Tensor,  # (B, S, N)
+    chunk: int = 256,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan as the CUDA kernels split it, in float32:
+
+    A. per (batch, chunk, head): cum, cum[L-1] and the chunk's own state
+       ``dS^T = (w B)^T x`` with ``w[s] = exp(cum[L-1] - cum[s]) dt[s]``;
+    B. per (batch, head): ``S_c = exp(cum_c[L-1]) S_{c-1} + dS_c``, keeping
+       each chunk's starting state;
+    C. per (batch, chunk, head): ``y = exp(cum) C S_{c-1}^T + G x`` with
+       ``G[t][s] = (C[t].B[s]) exp(cum[t] - cum[s]) dt[s]`` for ``s <= t``.
+
+    Returns ``(y in x's dtype, final float32 state)``."""
+    bsz, s, h, p = x.shape
+    n = b_proj.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    xc = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk, h, p)
+    dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(bsz, nc, chunk, h)
+    bc = F.pad(b_proj.float(), (0, 0, 0, pad)).reshape(bsz, nc, chunk, n)
+    cc = F.pad(c_proj.float(), (0, 0, 0, pad)).reshape(bsz, nc, chunk, n)
+    # A
+    cum = torch.cumsum(dtc * a.float(), dim=2)  # (B, C, L, H)
+    last = cum[:, :, -1]  # (B, C, H)
+    w = torch.exp(last[:, :, None] - cum) * dtc
+    ds_t = torch.einsum("bcsh,bcsn,bcshp->bchnp", w, bc, xc)
+    # B
+    state_t = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+               if init_state is None else init_state.float().transpose(2, 3))
+    starts = []
+    for ci in range(nc):
+        starts.append(state_t)
+        state_t = state_t * torch.exp(last[:, ci])[..., None, None] + ds_t[:, ci]
+    s_prev = torch.stack(starts, dim=1)  # (B, C, H, N, P)
+    # C
+    cb = torch.einsum("bctn,bcsn->bcts", cc, bc)
+    idx = torch.arange(chunk, device=x.device)
+    mask = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    diff = torch.where(mask, cum[:, :, :, None, :] - cum[:, :, None, :, :], 0.0)
+    g = torch.where(mask, cb[..., None] * torch.exp(diff) * dtc[:, :, None], 0.0)  # (B,C,T,S,H)
+    y = (torch.exp(cum)[..., None] * torch.einsum("bctn,bchnp->bcthp", cc, s_prev)
+         + torch.einsum("bctsh,bcshp->bcthp", g, xc))
+    y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
+    return y.to(x.dtype), state_t.transpose(2, 3).contiguous()
+
+
+__all__ = ["ssd_chunked_plain", "ssd_naive", "ssd_three_pass_plain"]

@@ -35,6 +35,7 @@ from repro.kernels.flash_attn.ref import attention_ref as j_attention_ref
 from repro.models.attention import blocked_attention as j_blocked
 from repro.models.attention import decode_attention as j_decode
 
+from repro_torch.kernels.build import INCLUDE_DIR
 from repro_torch.kernels.flash_attn import flash_attn as t_fa
 from repro_torch.kernels.flash_attn.flash_attn import flash_attention
 from repro_torch.kernels.flash_attn.ops import mha
@@ -176,7 +177,8 @@ def host_fa(tmp_path_factory):
         pytest.skip("g++ is not installed")
     src = t_fa.SOURCE.parent / "host_step_test.cpp"
     out = tmp_path_factory.mktemp("host_fa") / "libflash_attn_host.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out), str(src)],
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(INCLUDE_DIR),
+                    "-o", str(out), str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 from repro.models.attention import blocked_attention as j_blocked
 
+from repro_torch.kernels.build import INCLUDE_DIR
 from repro_torch.kernels.flash_attn import flash_attn as t_fa
 from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
 
@@ -55,7 +56,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("g++ is not installed")
     src = t_fa.SOURCE.parent / "host_step_test.cpp"
     out = tmp_path_factory.mktemp("host_fa_tc") / "libflash_attn_host.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out), str(src)],
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(INCLUDE_DIR),
+                    "-o", str(out), str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int

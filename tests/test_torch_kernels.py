@@ -3,9 +3,10 @@
 K1 (``lru_hits``) and K2 (``fused_levels``) run here through their plain
 PyTorch versions (CPU tensors) and through a g++ build of the CUDA step
 headers ``csrc/cache_sim_step.h`` and ``csrc/fused_warp_step.h`` — the
-logic the GPU runs, compiled for the host; K2's warp kernel runs as an
-emulation of its 32 lanes (``host_fused_levels_warp``), on both of its
-state routes.  Both are held bit for bit against the Pallas kernels in
+logic the GPU runs, compiled for the host; K1's and K2's warp kernels run
+as emulations of their 32 lanes (``host_lru_hits_group``: a lane group a
+row, one way a lane; ``host_fused_levels_warp``, on both of K2's state
+routes).  Both are held bit for bit against the Pallas kernels in
 interpret mode (``lru_hits`` / ``lru_hits_carry`` / ``fused_levels_pallas``)
 and the pure-Python oracle ``lru_hits_ref``: hit bits, hit levels and raw
 final states (every version stamps ages with the position in the row plus
@@ -239,6 +240,8 @@ def host_steps(tmp_path_factory):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.host_lru_hits.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp]
     lib.host_lru_hits.restype = ci
+    lib.host_lru_hits_group.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.host_lru_hits_group.restype = ci
     lib.host_fused_levels.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.host_fused_levels.restype = ci
     lib.host_fused_levels_warp.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp]
@@ -252,10 +255,12 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def host_lru(lib, blocks, offsets, tags, age):
-    hits = torch.empty(blocks.shape[0], dtype=torch.uint8)
+def host_lru(lib, blocks, offsets, tags, age, group=False):
+    """The host build of K1's walk: the kernel's lane groups, emulated
+    (``group``), or the per-step walk ``lru_row`` of the design before."""
+    hits = torch.full((blocks.shape[0],), 7, dtype=torch.uint8)
     to, ao = torch.empty_like(tags), torch.empty_like(age)
-    rc = lib.host_lru_hits(
+    rc = (lib.host_lru_hits_group if group else lib.host_lru_hits)(
         _ptr(blocks), _ptr(offsets), offsets.shape[0] - 1, tags.shape[1],
         _ptr(tags), _ptr(age), _ptr(to), _ptr(ao), _ptr(hits),
     )
@@ -332,6 +337,89 @@ def test_host_build_k1_matches_plain_and_jax(host_steps, n, span, sets, ways, se
         canon = tengine.canonicalize_state(got[1], got[2])
         np.testing.assert_array_equal(canon.tags.numpy(), jst.tags)
         np.testing.assert_array_equal(canon.age.numpy(), jst.age)
+
+
+@given(
+    n=st.integers(0, 600),
+    span=st.integers(1, 400),
+    sets=st.sampled_from([1, 4, 16, 64]),
+    ways=st.integers(1, 32),
+    seed=st.integers(0, 50),
+)
+@settings(max_examples=12, deadline=None)
+def test_host_group_k1_matches_plain_pallas_and_oracle(host_steps, n, span, sets, ways, seed):
+    """The kernel's lane groups (one way a lane, 32 lanes emulated; batches
+    of 4 G accesses, hit bytes 4 at a time) on ways 1-32, from a random
+    carry: hit bits and raw final states equal the plain version's and the
+    Pallas carry kernel's (interpret mode), and the oracle's hits."""
+    blocks = _stream(n, span, seed) if n else np.zeros(0, np.int64)
+    st0 = _random_canonical(sets, ways, seed)
+    args = _k1_ragged(blocks, sets, st0.tags, st0.age)
+    got = host_lru(host_steps, *args, group=True)
+    assert_k1_equal(got, lru_hits_plain(*args))
+    assert_k1_equal(got, _pallas_k1(blocks, sets, st0))
+    if n:
+        padded, _, col, row = jengine.group_by_set(blocks, sets)
+        init = jengine.init_state(sets, ways)
+        cold = _k1_ragged(blocks, sets, init.tags, init.age)
+        np.testing.assert_array_equal(host_lru(host_steps, *cold, group=True)[0].numpy(),
+                                      lru_hits_ref(np.ascontiguousarray(padded.T), ways)[row, col])
+
+
+def _ragged_rows(lengths, span, seed, pad_frac=0.0):
+    """Ragged K1 rows of the given lengths (random blocks, a share of them
+    pads, -1), as CPU tensors: ``(blocks, offsets)``."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, span, int(sum(lengths))).astype(np.int32)
+    blocks[rng.random(blocks.shape[0]) < pad_frac] = -1
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    return torch.from_numpy(blocks), torch.from_numpy(offsets)
+
+
+@pytest.mark.parametrize("ways", list(range(1, 33)))
+def test_host_group_k1_rows_batches_and_pads(host_steps, ways):
+    """Rows of every length around the 4-access hit words and the 4 G-access
+    batches (0, 1, 15, 16, 17, 63, 64, 65, 200, 600), so rows start at
+    every offset within a batch and some span many batches, with pads:
+    equal to the plain version and to the per-step walk it replaces,
+    which both set a pad's hit bit and leave the state alone; resumed
+    from the first call's canonical carry, the same again."""
+    lengths = [0, 1, 15, 16, 17, 63, 64, 65, 200, 600, 0, 3, 129, 40, 1, 0, 77, 130, 5]
+    blocks, offsets = _ragged_rows(lengths, 8 * ways + 3, seed=ways, pad_frac=0.1)
+    tags = torch.from_numpy(_random_canonical(len(lengths), ways, 5).tags)
+    age = torch.from_numpy(_random_canonical(len(lengths), ways, 5).age)
+    got = host_lru(host_steps, blocks, offsets, tags, age, group=True)
+    assert_k1_equal(got, lru_hits_plain(blocks, offsets, tags, age))
+    assert_k1_equal(got, host_lru(host_steps, blocks, offsets, tags, age))
+    carry = tengine.canonicalize_state(got[1], got[2])
+    again = host_lru(host_steps, blocks, offsets, carry.tags, carry.age, group=True)
+    assert_k1_equal(again, lru_hits_plain(blocks, offsets, carry.tags, carry.age))
+
+
+@pytest.mark.parametrize("rows,ways,accesses", [
+    (512, 8, 60_000),  # path B's launches 1 and 3: few sets, long rows
+    (1024, 8, 80_000),
+    (8192, 16, 40_000),  # launches 2 and 4: many sets, short rows, some empty
+    (16384, 16, 30_000),
+])
+def test_host_group_k1_at_b_like_geometries(host_steps, rows, ways, accesses):
+    """Path B's launch geometries (sets x ways), with a skewed stream so
+    one row runs many batches long and others stay empty: the lane groups
+    equal the plain version bit for bit, cold and resumed."""
+    rng = np.random.default_rng(rows)
+    # even sets only (odd rows empty), and set 0 hot: ~500 extra accesses
+    blocks = np.concatenate([rng.integers(0, 20 * rows, accesses) * 2,
+                             rng.integers(0, 200, 500) * 2 * rows]).astype(np.int64)
+    rng.shuffle(blocks)
+    init = tengine.init_state(rows, ways, CPU)
+    args = _k1_ragged(blocks, rows, init.tags.numpy(), init.age.numpy())
+    lens = args[1][1:] - args[1][:-1]
+    assert int(lens.max()) > 3 * 64 and int((lens == 0).sum()) > 0
+    got = host_lru(host_steps, *args, group=True)
+    assert_k1_equal(got, lru_hits_plain(*args))
+    carry = tengine.canonicalize_state(got[1], got[2])
+    args2 = _k1_ragged(blocks[::-1].copy(), rows, carry.tags.numpy(), carry.age.numpy())
+    assert_k1_equal(host_lru(host_steps, *args2, group=True), lru_hits_plain(*args2))
 
 
 @given(

@@ -2,10 +2,10 @@
 the CPU.
 
 The plain chunked version (what the K6 wrapper runs on a CPU tensor), the
-sequential recurrence ``ssd_naive`` and a g++ build of the CUDA step header
-``csrc/ssd_step.h`` (through the test-only harness
-``csrc/host_step_test.cpp``: the serial (chunk, head) step with the decay
-masked before the exponent) are held against the model's ``ssd_chunked``
+sequential recurrence ``ssd_naive`` and a g++ build of the serial chunk
+step ``tools/kernel_variants_csrc/ssd_serial_step.h`` (the block-per-head
+design's, through the test-only harness ``csrc/host_step_test.cpp``: one
+(chunk, head) at a time with the decay masked before the exponent) are held against the model's ``ssd_chunked``
 (chunks 16 and 32), the Pallas kernel ``ssd_scan`` in interpret mode and
 the JAX naive recurrence.  At chunk 256 with the model's dt, the reference
 ``ssd_chunked`` gives NaN (its unmasked exponent overflows) while the port
@@ -22,6 +22,7 @@ Tolerance: ``rtol=atol=2e-4`` in float32, the JAX package's SSD tolerance
 import ctypes
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,10 +42,14 @@ from repro.models.ssm import ssm_block as j_ssm_block
 from repro.models.ssm import ssm_decode_step as j_ssm_decode_step
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.build import INCLUDE_DIR
 from repro_torch.kernels.ssd_scan import ssd_scan as t_ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain, ssd_naive
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 from repro_torch.models.ssm import SSMParams, ssd_chunked, ssm_block, ssm_decode_step
+
+# the serial chunk step (ssd_serial_step.h), which host_step_test.cpp includes
+SERIAL_DIR = Path(__file__).resolve().parent.parent / "tools" / "kernel_variants_csrc"
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -216,7 +221,8 @@ def host_ssd(tmp_path_factory):
         pytest.skip("g++ is not installed")
     src = t_ssd.SOURCE.parent / "host_step_test.cpp"
     out = tmp_path_factory.mktemp("host_ssd") / "libssd_host.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out), str(src)],
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(INCLUDE_DIR),
+                    "-I", str(SERIAL_DIR), "-o", str(out), str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int

@@ -3,7 +3,7 @@
 card, at the shapes of the main paths, by building variants of the
 committed sources.
 
-    python3 tools/kernel_variants.py [k5] [k4b] [k2] [k3b]   (default: all)
+    python3 tools/kernel_variants.py [k5] [k4b] [k2] [k3b] [k6] [k1]   (default: all)
 
 Each variant is the committed ``.cu`` file with one constant replaced (or,
 for the designs a kernel replaced, the earlier kernel rebuilt from the
@@ -30,6 +30,27 @@ directly.
   vector route, the scalar route, and one thread an element with a 64-bit
   division (the design before); beside ``base[:, None] + deltas``.
 
+- K6 (``ssd_scan.cu``) at path F's shape, x (4, 4096, 64, 64) bf16, B/C
+  (4, 4096, 64), chunk 256, dt = softplus(N(0, 1)): the committed passes
+  (each pass's device time from ``torch.profiler``) with pass C's head
+  groups of 8 (the kernel's choice), 4 and 16; one block per (batch, head)
+  with scalar float32 products (the design before,
+  ``tools/kernel_variants_csrc/ssd_scan_block_per_head.cu``); the plain
+  version; the state term in a pass of its own after pass C (pass C writes
+  its intra-chunk y as float32, ``kernel_variants_csrc/ssd_state_pass.cuh``)
+  against the kernel, where it is fused into pass C.  The float32 route at
+  the cross-check's shape (4, 512, 64, 64) with N 64 and 128: its inputs
+  in 3 bf16 parts a side (the kernel) or 2 (``SSD_F32_PARTS``), float32
+  FMAs on the CUDA cores in the same chunk-parallel grid
+  (``kernel_variants_csrc/ssd_f32_cuda_cores.cuh``), and the state term in
+  its own pass, each with its error against the plain version; the two new
+  designs are held within ``SSD_TOL`` on two ragged shapes first.
+- K1 (``lru_hits.cu``) on main path B's four launches: one lane group a
+  row with the ways across lanes (the kernel, design (a)), one thread a
+  row with the accesses staged in shared memory (design (b)), and one
+  thread a row that loads each access and stores each hit byte itself
+  (the design before, ``lru_row``).
+
 Every variant's output is held against the committed kernel's plain
 version first (K2, K3b and K4b bit for bit, K5 within
 ``chip_smoke.ATTN_TOL``).  Prints the card's name and power limit, then one
@@ -45,6 +66,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+VARIANT_CSRC = ROOT / "tools" / "kernel_variants_csrc"  # sources and headers of variants
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
@@ -66,7 +88,7 @@ def rebuilt(source: Path, name: str, text: str) -> Path:
 
     out = build.BUILD_DIR / "variants" / f"{source.stem}-{name}"
     out.mkdir(parents=True, exist_ok=True)
-    for h in source.parent.glob("*.h"):
+    for h in [*source.parent.glob("*.h"), *VARIANT_CSRC.glob("*.h")]:
         (out / h.name).write_text(h.read_text())
     path = out / source.name
     path.write_text(text)
@@ -381,7 +403,481 @@ def k3b_variants(dev, readings):
     cs.log(f"base[:, None] + deltas: {lib:.4f} ms")
 
 
-VARIANTS = {"k5": k5_variants, "k4b": k4b_variants, "k2": k2_variants, "k3b": k3b_variants}
+def pass_ms(fn, dev, names, reps=5):
+    """Device milliseconds a call of ``fn`` spends in each kernel whose name
+    holds one of ``names``, from ``torch.profiler`` over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    out = {n: 0.0 for n in names}
+    for ev in prof.key_averages():
+        for n in names:
+            if n in ev.key:
+                out[n] += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+    return {n: us / 1e3 / reps for n, us in out.items()}
+
+
+# K6 with the state term in a pass of its own (ssd_state_pass.cuh): pass C
+# leaves it out and writes its float32 intra-chunk y to a scratch.
+K6_STATE_PASS_EDITS = [
+    ("const float4* __restrict__ pos_g,\n                  T* __restrict__ y,",
+     "const float4* __restrict__ pos_g,\n                  float* __restrict__ y,"),
+    ("      if (st == 0) {\n        // exp(cum[t]) C[t] . S_{c-1}",
+     "      if (false) {  // the state term runs in its own pass\n        // exp(cum[t]) C[t] . S_{c-1}"),
+    ("    for (int q = 0; q < SP; ++q) load_rows<P, 1>(ss + q * N * P, src + q * N * P, P, N, N);",
+     "    for (int q = 0; q < 0; ++q) load_rows<P, 1>(ss + q * N * P, src + q * N * P, P, N, N);"),
+    ("        T* yrow = y + ", "        float* yrow = y + "),
+    ("          if constexpr (NP == 1)\n            *reinterpret_cast<uint32_t*>(yrow + p)",
+     "          if constexpr (false)\n            *reinterpret_cast<uint32_t*>(yrow + p)"),
+    ("  const int bytes = SsdOutputSmem(P, N, NP, SP, lpad).total;\n",
+     "  float* yf = intra_scratch(bsz * s_len * h * P);\n"
+     "  if (!yf) return (int)cudaErrorMemoryAllocation;\n"
+     "  const int bytes = SsdOutputSmem(P, N, NP, SP, lpad).total;\n"),
+    ("(const float4*)pos, (T*)y, sd, s_len, h, chunk);\n  return (int)cudaGetLastError();\n}",
+     "(const float4*)pos, yf, sd, s_len, h, chunk);\n"
+     "  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;\n"
+     "  return launch_state_term<T, P, N>(c, planes, pos, yf, y, sd, bsz, s_len, h, chunk, stream);\n}"),
+]
+# K6's float32 route on the CUDA cores (ssd_f32_cuda_cores.cuh)
+K6_CUDA_CORE_EDITS = [
+    ("  return dispatch<float>(p, n, x, dt, a, b, c, init, y, fin, ds, last, planes, pos, sd, bsz,\n"
+     "                         s_len, h, chunk, s);",
+     "  return dispatch_cc(p, n, x, dt, a, b, c, init, y, fin, ds, last, planes, pos, sd, bsz,\n"
+     "                     s_len, h, chunk, s);"),
+]
+
+
+def spliced(source: Path, name: str, cuh: str, edits) -> Path:
+    """``source`` with each (old, new) of ``edits`` made once and the text
+    of ``VARIANT_CSRC / cuh`` put before its ``launch`` template."""
+    text = source.read_text()
+    anchor = "template <typename T, int P, int N>\nint launch("
+    for old, new in [*edits, (anchor, (VARIANT_CSRC / cuh).read_text() + "\n" + anchor)]:
+        if text.count(old) != 1:
+            raise SystemExit(f"{source.name}: {old!r} found {text.count(old)} times")
+        text = text.replace(old, new)
+    return rebuilt(source, name, text)
+
+
+def k6_variants(dev, readings):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import ptr, stream_ptr
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain, ssd_naive
+
+    src = ssd.SOURCE
+    state_pass = spliced(src, "state-pass", "ssd_state_pass.cuh", K6_STATE_PASS_EDITS)
+    tc = {"head groups of 8 (the kernel)": src}
+    for hg in (4, 16):
+        tc[f"head groups of {hg}"] = variant(src, f"hg{hg}", "constexpr int HG_OUTPUT = 8;",
+                                             f"constexpr int HG_OUTPUT = {hg};")
+    tc["state term in a pass of its own"] = state_pass
+    f32 = {f"{parts} bf16 parts a side" + (" (the kernel)" if parts == 3 else ""):
+           variant(src, f"f32parts{parts}", '#include "ssd_step.h"',
+                   f'#define SSD_F32_PARTS {parts}\n#include "ssd_step.h"')
+           for parts in (3, 2)}
+    f32["float32 FMAs on the CUDA cores"] = spliced(src, "f32-cuda-cores",
+                                                    "ssd_f32_cuda_cores.cuh", K6_CUDA_CORE_EDITS)
+    f32["state term in a pass of its own"] = state_pass
+    before = rebuilt(src, "block-per-head", (VARIANT_CSRC
+                                             / "ssd_scan_block_per_head.cu").read_text())
+    build.build(list(dict.fromkeys([*tc.values(), *f32.values(), before])))  # each once
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    names = ["ssd_state_kernel", "ssd_carry_kernel", "ssd_output_kernel", "ssd_state_term_kernel"]
+
+    def tc_runner(path, x, dt, a, b, c, chunk=256):
+        lib = build.load(path)
+        fn = lib.ssd_scan_launch
+        fn.argtypes = [vp] * 12 + [i64] * 8 + [ci, ci, ci, ci, ci, vp]
+        bsz, s, h, p = x.shape
+        n, nc = b.shape[-1], -(-s // chunk)
+        lpad = chunk if chunk > 64 else -(-chunk // 16) * 16
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        y = torch.empty_like(x)
+        fin = torch.empty((bsz, h, p, n), device=dev)
+        states = torch.empty((bsz, nc, h, n, p), device=dev)
+        last = torch.empty((bsz, nc, h), device=dev)
+        planes = torch.empty((bsz, nc, h, lib.ssd_scan_state_parts(is_bf16), n, p),
+                             dtype=torch.bfloat16, device=dev)
+        pos = torch.empty((bsz, nc, h, lpad, 4), device=dev)
+
+        def run():
+            rc = fn(ptr(x), ptr(dt), ptr(a), ptr(b), ptr(c), None, ptr(y), ptr(fin), ptr(states),
+                    ptr(last), ptr(planes), ptr(pos), s * h * p, h * p, s * n, n, s * n, n, bsz,
+                    s, h, p, n, chunk, is_bf16, stream_ptr(dev))
+            if rc:
+                raise RuntimeError(f"CUDA error {rc}")
+            return y, fin
+        return run
+
+    def outside(got, ref, tol):
+        return int(((got.double() - ref.double()).abs()
+                    > tol["atol"] + tol["rtol"] * ref.double().abs()).sum())
+
+    # the new float32 designs first, held as chip_smoke.py holds the kernel
+    # (beside it): against the plain version on two of its ragged families
+    # (chunks 48 and 512, P 32 / N 16 and P 64 / N 128), and against the
+    # recurrence ssd_naive at chunk 256 with dt = softplus(N(0, 1))
+    rng = np.random.default_rng(1)
+    for (bsz, s, h, p, n, chunk, sp) in ((2, 300, 3, 32, 16, 48, False),
+                                         (1, 1100, 9, 64, 128, 512, False),
+                                         (1, 512, 4, 64, 64, 256, True)):
+        x, dt, a, b, c, _ = cs.k6_inputs(rng, bsz, s, h, p, n, torch.float32, dev,
+                                         softplus_dt=sp)
+        ref = ssd_naive(x, dt, a, b, c) if sp else ssd_chunked_plain(x, dt, a, b, c, chunk)
+        for name in ("3 bf16 parts a side (the kernel)", "float32 FMAs on the CUDA cores",
+                     "state term in a pass of its own"):
+            y, fin = tc_runner(f32[name], x, dt, a, b, c, chunk)()
+            e = max(cs.close(y, ref[0], what=f"K6 {name}: y", **cs.SSD_TOL["float32"]),
+                    cs.close(fin, ref[1], what=f"K6 {name}: state", **cs.SSD_TOL["float32"]))
+            cs.log(f"K6 float32 {name} == {'ssd_naive' if sp else 'plain'} at ({bsz}, {s}, {h}, "
+                   f"{p}), N {n}, chunk {chunk}: max abs err {e:.3g}")
+
+    # path F's shape: x (4, 4096, 64, 64) bf16, B/C (4, 4096, 64), chunk 256,
+    # dt = softplus(N(0, 1)), a = -1 (the model's init)
+    rng = np.random.default_rng(0)
+    x, dt, a, b, c, _ = cs.k6_inputs(rng, 4, 4096, 64, 64, 64, torch.bfloat16, dev,
+                                     softplus_dt=True)
+    ref = ssd_chunked_plain(x, dt, a, b, c, 256)
+    cs.log("K6 at path F's shape, x (4, 4096, 64, 64) bf16, chunk 256")
+    for name, path in tc.items():
+        run = tc_runner(path, x, dt, a, b, c)
+        y, fin = run()
+        e = max(cs.close(y, ref[0], what=f"K6 {name}: y", **cs.SSD_TOL["bfloat16"]),
+                cs.close(fin, ref[1], what=f"K6 {name}: state", **cs.SSD_TOL["float32"]))
+        ms = cs.cuda_ms(run, dev, reps=20)
+        parts = pass_ms(run, dev, names)
+        readings[f"K6 tensor cores, {name}"] = ms
+        readings[f"K6 tensor cores, {name}: passes"] = parts
+        cs.log(f"K6 tensor cores, {name}: {ms:.4f} ms; passes A {parts['ssd_state_kernel']:.4f}, "
+               f"B {parts['ssd_carry_kernel']:.4f}, C {parts['ssd_output_kernel']:.4f}, "
+               f"D (state term) {parts['ssd_state_term_kernel']:.4f} ms (torch.profiler); "
+               f"max abs err {e:.3g}")
+    fn = build.load(before).ssd_scan_launch
+    fn.argtypes = [vp] * 8 + [i64, i64, ci, ci, ci, ci, ci, vp]
+    y, fin = torch.empty_like(x), torch.empty((4, 64, 64, 64), device=dev)
+
+    def run_before():
+        rc = fn(ptr(x), ptr(dt), ptr(a), ptr(b), ptr(c), None, ptr(y), ptr(fin), 4, 4096, 64, 64,
+                64, 256, 1, stream_ptr(dev))
+        if rc:
+            raise RuntimeError(f"CUDA error {rc}")
+
+    run_before()
+    cs.close(y, ref[0], what="K6 block per head: y", **cs.SSD_TOL["bfloat16"])
+    ms = cs.cuda_ms(run_before, dev, reps=5)
+    readings["K6 one block per (batch, head), scalar float32 (the design before)"] = ms
+    cs.log(f"K6 one block per (batch, head), scalar float32 (the design before): {ms:.4f} ms")
+    ms = cs.cuda_ms(lambda: ssd_chunked_plain(x, dt, a, b, c, 256), dev, reps=2)
+    readings["K6 plain version"] = ms
+    cs.log(f"K6 plain version: {ms:.3f} ms")
+
+    # the float32 route at the cross-check's shape, (4, 512, 64, 64), N 64,
+    # and at N 128 (where two parts miss float32's tolerance)
+    for n in (64, 128):
+        x, dt, a, b, c, _ = cs.k6_inputs(rng, 4, 512, 64, 64, n, torch.float32, dev,
+                                         softplus_dt=True)
+        ref = ssd_chunked_plain(x, dt, a, b, c, 256)
+        for name, path in f32.items():
+            run = tc_runner(path, x, dt, a, b, c)
+            y, fin = run()
+            err = float((y - ref[0]).abs().max())
+            over = outside(y, ref[0], cs.SSD_TOL["float32"]) + outside(fin, ref[1],
+                                                                      cs.SSD_TOL["float32"])
+            ms = cs.cuda_ms(run, dev, reps=20)
+            parts = pass_ms(run, dev, names + ["ssd_state_cc_kernel", "ssd_output_cc_kernel"])
+            readings[f"K6 float32, {name}, N {n}"] = dict(ms=ms, max_abs_err=err,
+                                                          outside_tol=over, passes=parts)
+            cs.log(f"K6 float32 (4, 512, 64, 64), N {n}, {name}: {ms:.4f} ms, max abs err "
+                   f"{err:.3g}, {over} elements outside rtol=atol=2e-4; passes (torch.profiler) "
+                   + ", ".join(f"{k} {v:.4f}" for k, v in parts.items() if v))
+
+
+# K1 before: one thread a row, each step loading its access from global
+# memory and storing its hit byte (lru_row of cache_sim_step.h).
+K1_THREAD_PER_STEP = r"""
+#include <cuda_runtime.h>
+#include "cache_sim_step.h"
+
+template <int CAP>
+__global__ void lru_hits_step_kernel(const int32_t* __restrict__ blocks,
+                                     const int64_t* __restrict__ offsets, int rows, int ways,
+                                     const int32_t* __restrict__ tags_in,
+                                     const int32_t* __restrict__ age_in,
+                                     int32_t* __restrict__ tags_out,
+                                     int32_t* __restrict__ age_out, uint8_t* __restrict__ hits) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const int64_t s = row * ways;
+  lru_row<CAP>(blocks, offsets[row], offsets[row + 1], ways, tags_in + s, age_in + s,
+               tags_out + s, age_out + s, hits);
+}
+
+extern "C" int lru_hits_launch(const void* blocks, const void* offsets, int rows, int ways,
+                               const void* tags_in, const void* age_in, void* tags_out,
+                               void* age_out, void* hits, void* stream) {
+#define STEP(CAP) lru_hits_step_kernel<CAP><<<(rows + 31) / 32, 32, 0, (cudaStream_t)stream>>>( \
+    (const int32_t*)blocks, (const int64_t*)offsets, rows, ways, (const int32_t*)tags_in, \
+    (const int32_t*)age_in, (int32_t*)tags_out, (int32_t*)age_out, (uint8_t*)hits)
+  if (ways <= 8) STEP(8); else STEP(16);
+  return (int)cudaGetLastError();
+}
+"""
+
+# K1 design (b): one thread a row, the warp staging its 32 rows' next 64
+# accesses in shared memory with cp.async (two stages, 16-byte chunks), a
+# thread reading 4 accesses a 16-byte shared load, the touched way found by
+# a pairwise tree over the ways, hit bytes stored 4 at a time.
+K1_STAGED = r"""
+#include <cuda_runtime.h>
+#include "cache_sim_step.h"
+// lru_step with the touched way found by a pairwise tree instead of a
+// chain over the ways: log2(CAP) levels of compare-and-select, the lower
+// ways winning ties at each node, so the winner is the same first minimum
+// and the outputs are lru_step's bit for bit.  Ways beyond `ways` take
+// part with key INT32_MAX and never win over a real way.  The tree is an
+// implicit binary heap (way w's leaf at CAP + w, node i over 2i and
+// 2i + 1) walked by one loop of CAP - 1 nodes, so that it unrolls with
+// constant indices and its arrays stay in registers.
+template <int CAP>
+CS_HD bool lru_step_tree(int32_t* tags, int32_t* age, int ways, int32_t b, int32_t t,
+                         bool update) {
+  int32_t key[2 * CAP];
+  int idx[2 * CAP];
+  bool hit = false;
+CS_UNROLL
+  for (int w = 0; w < CAP; ++w) {
+    const bool h = w < ways && tags[w] == b;
+    key[CAP + w] = w >= ways ? CS_INT32_MAX : h ? CS_INT32_MIN : age[w];
+    idx[CAP + w] = w;
+    hit = hit || h;
+  }
+CS_UNROLL
+  for (int i = CAP - 1; i >= 1; --i) {
+    const bool right = key[2 * i + 1] < key[2 * i];
+    key[i] = right ? key[2 * i + 1] : key[2 * i];
+    idx[i] = right ? idx[2 * i + 1] : idx[2 * i];
+  }
+  const int way = idx[1];  // the root (for CAP 1, way 0's leaf)
+  if (update) {
+CS_UNROLL
+    for (int w = 0; w < CAP; ++w) {
+      if (w == way) {
+        tags[w] = b;
+        age[w] = t;
+      }
+    }
+  }
+  return hit;
+}
+
+// K1's staged walk (lru_hits.cu): one thread per (stream, set) row, 32 rows
+// a warp.  The warp copies each row's next LRU_WINDOW accesses into shared
+// memory ahead of the walk (cp.async, two stages), in 16-byte chunks from
+// a window base aligned down to 4 accesses; a thread takes its row's
+// accesses 4 at a time (one 16-byte shared load) and stores their 4 hit
+// bytes as one word where all 4 lie in its row, byte by byte at the row's
+// two ends.  The loop body is one group of 4 steps, so that the walk's
+// code stays small for every CAP.
+#define LRU_WINDOW 64
+// Words between two rows of a stage: rows stay 16-byte aligned, and the 8
+// lanes of one phase of a 16-byte shared load hit 8 distinct bank groups.
+#define LRU_STRIDE (LRU_WINDOW + 4)
+
+CS_HD int64_t lru_window_base(int64_t lo) { return lo & ~(int64_t)3; }
+
+// Windows a row [lo, hi) walks.
+CS_HD int lru_windows(int64_t lo, int64_t hi) {
+  return hi > lo ? (int)((hi - lru_window_base(lo) + LRU_WINDOW - 1) / LRU_WINDOW) : 0;
+}
+
+// Bytes of the 16-byte chunk at access index a that the copy reads: those
+// before the row's end (the rest is zero-filled), so nothing past the
+// stream is read.
+CS_HD int lru_chunk_bytes(int64_t a, int64_t hi) {
+  const int64_t v = (hi - a) * 4;
+  return v <= 0 ? 0 : v >= 16 ? 16 : (int)v;
+}
+
+// One thread's walk over accesses [base, base + 4) of its row [lo, hi)
+// (base a multiple of 4), whose staged values are `staged` (16-byte
+// aligned): the steps of the accesses in the row, then their hit bytes,
+// packed in one word, stored whole where all 4 lie in [lo, hi) and one by
+// one where some do.
+template <int CAP>
+CS_HD void lru_block4(const int32_t* staged, int64_t base, int64_t lo, int64_t hi, int ways,
+                      int32_t* tg, int32_t* ag, uint8_t* hits) {
+  int32_t bb[4];
+#if defined(__CUDA_ARCH__)
+  const int4 v = *reinterpret_cast<const int4*>(staged);
+  bb[0] = v.x, bb[1] = v.y, bb[2] = v.z, bb[3] = v.w;
+#else
+  for (int e = 0; e < 4; ++e) bb[e] = staged[e];
+#endif
+  uint32_t w = 0u;
+CS_UNROLL
+  for (int e = 0; e < 4; ++e) {
+    const int64_t i = base + e;
+    if (i >= lo && i < hi) {
+      const bool hit = lru_step_tree<CAP>(tg, ag, ways, bb[e], (int32_t)(i - lo + 1), bb[e] >= 0);
+      w |= (uint32_t)hit << (8 * e);
+    }
+  }
+  if (base >= lo && base + 4 <= hi) {
+#if defined(__CUDA_ARCH__)
+    *reinterpret_cast<uint32_t*>(hits + base) = w;
+#else
+    for (int e = 0; e < 4; ++e) hits[base + e] = (uint8_t)(w >> (8 * e));
+#endif
+  } else {
+CS_UNROLL
+    for (int e = 0; e < 4; ++e)
+      if (base + e >= lo && base + e < hi) hits[base + e] = (uint8_t)(w >> (8 * e));
+  }
+}
+
+
+template <int CAP>
+__global__ void __launch_bounds__(32)
+lru_hits_staged_kernel(const int32_t* __restrict__ blocks, const int64_t* __restrict__ offsets,
+                       int rows, int ways, const int32_t* __restrict__ tags_in,
+                       const int32_t* __restrict__ age_in, int32_t* __restrict__ tags_out,
+                       int32_t* __restrict__ age_out, uint8_t* __restrict__ hits) {
+  constexpr int CHUNKS = LRU_WINDOW / 4;
+  __shared__ __align__(16) int32_t stage[2][32][LRU_STRIDE];
+  __shared__ int64_t base_s[32], hi_s[32];
+  const int lane = threadIdx.x;
+  const int64_t row = (int64_t)blockIdx.x * 32 + lane;
+  const bool has = row < rows;
+  const int64_t lo = has ? offsets[row] : 0, hi = has ? offsets[row + 1] : 0;
+  const int64_t base = lru_window_base(lo);
+  base_s[lane] = base;
+  hi_s[lane] = hi;
+  const int windows = (int)__reduce_max_sync(0xffffffffu, (unsigned)lru_windows(lo, hi));
+  int32_t tg[CAP], ag[CAP];
+#pragma unroll
+  for (int w = 0; w < CAP; ++w) {
+    tg[w] = has && w < ways ? tags_in[row * ways + w] : -2;
+    ag[w] = has && w < ways ? age_in[row * ways + w] : CS_INT32_MAX;
+  }
+  __syncwarp();
+  auto issue = [&](int k) {
+    for (int idx = lane; idx < 32 * CHUNKS; idx += 32) {
+      const int r = idx / CHUNKS, ch = idx % CHUNKS;
+      const int64_t a = base_s[r] + (int64_t)k * LRU_WINDOW + 4 * ch;
+      const int bytes = lru_chunk_bytes(a, hi_s[r]);
+      const unsigned d = (unsigned)__cvta_generic_to_shared(&stage[k & 1][r][4 * ch]);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                   "l"(blocks + (bytes ? a : 0)), "r"(bytes));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (windows > 0) issue(0);
+  for (int k = 0; k < windows; ++k) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+    if (k + 1 < windows) issue(k + 1);
+    const int32_t* st = stage[k & 1][lane];
+#pragma unroll 1
+    for (int q = 0; q < LRU_WINDOW / 4; ++q)
+      lru_block4<CAP>(st + 4 * q, base + (int64_t)k * LRU_WINDOW + 4 * q, lo, hi, ways, tg, ag,
+                      hits);
+  }
+  if (has) {
+#pragma unroll
+    for (int w = 0; w < CAP; ++w)
+      if (w < ways) {
+        tags_out[row * ways + w] = tg[w];
+        age_out[row * ways + w] = ag[w];
+      }
+  }
+}
+
+extern "C" int lru_hits_launch(const void* blocks, const void* offsets, int rows, int ways,
+                               const void* tags_in, const void* age_in, void* tags_out,
+                               void* age_out, void* hits, void* stream) {
+#define STAGED(CAP) lru_hits_staged_kernel<CAP><<<(rows + 31) / 32, 32, 0, (cudaStream_t)stream>>>( \
+    (const int32_t*)blocks, (const int64_t*)offsets, rows, ways, (const int32_t*)tags_in, \
+    (const int32_t*)age_in, (int32_t*)tags_out, (int32_t*)age_out, (uint8_t*)hits)
+  if (ways <= 8) STAGED(8); else STAGED(16);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def k1_variants(dev, readings):
+    """K1 on path B's four launches (pgd/google under PAPER), each design
+    held bit for bit against the plain version of the first launch and
+    against the committed kernel on every launch, then timed."""
+    import torch
+
+    from repro_torch import memsim
+    from repro_torch.core import build_workload, resolve_prefetchers, score_prefetchers_batched
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import ptr, stream_ptr
+    from repro_torch.kernels.cache_sim import cache_sim as k1
+    from repro_torch.memsim import engine
+
+    designs = {
+        "one lane group a row, ways across lanes (the kernel, design a)": k1.SOURCE,
+        "one thread a row, accesses staged in shared memory (design b)":
+            rebuilt(k1.SOURCE, "staged", K1_STAGED),
+        "one thread a row, a global load and store a step (the design before)":
+            rebuilt(k1.SOURCE, "thread-per-step", K1_THREAD_PER_STEP),
+    }
+    build.build(list(designs.values()))
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return k1.lru_hits(*args)
+
+    engine.lru_hits = recorded
+    try:
+        wl = build_workload("pgd", "google", hierarchy=memsim.PAPER, device=dev)
+        score_prefetchers_batched(wl, resolve_prefetchers(["amc", "vldp"]))
+    finally:
+        engine.lru_hits = k1.lru_hits
+    del wl
+    for li, args in enumerate(calls):
+        lens = args[1][1:] - args[1][:-1]
+        longest = int(lens.max())
+        ref = k1.lru_hits(*args)
+        if li == 0:
+            cs.check(cs.max_err(ref, k1.lru_hits_plain(*args)) == 0, "K1 launch 1: kernel != plain")
+        cs.log(f"K1 launch {li + 1}: {args[0].numel()} accesses, {args[2].shape[0]} rows x "
+               f"{args[2].shape[1]} ways, longest row {longest}")
+        for name, path in designs.items():
+            fn = build.load(path).lru_hits_launch
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+            hits = torch.empty_like(ref[0])
+            to, ao = torch.empty_like(ref[1]), torch.empty_like(ref[2])
+
+            def run(fn=fn, hits=hits, to=to, ao=ao):
+                rc = fn(ptr(args[0]), ptr(args[1]), args[2].shape[0], args[2].shape[1],
+                        ptr(args[2]), ptr(args[3]), ptr(to), ptr(ao), ptr(hits), stream_ptr(dev))
+                if rc:
+                    raise RuntimeError(f"CUDA error {rc}")
+
+            run()
+            cs.check(cs.max_err([hits, to, ao], list(ref)) == 0, f"K1 {name}, launch {li + 1}: "
+                     "!= the kernel")
+            ms = cs.cuda_ms(run, dev, reps=3)
+            readings[f"K1 launch {li + 1}, {name}"] = dict(ms=ms, ns_per_step=ms * 1e6 / longest)
+            cs.log(f"  {name}: {ms:.3f} ms, {ms * 1e6 / longest:.1f} ns a step of the longest row")
+
+
+VARIANTS = {"k5": k5_variants, "k4b": k4b_variants, "k2": k2_variants, "k3b": k3b_variants,
+            "k6": k6_variants, "k1": k1_variants}
 
 
 def main() -> int:
