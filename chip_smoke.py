@@ -7,16 +7,23 @@ Phases (any failure exits non-zero; each prints its seconds):
 
 1. Build every CUDA kernel from ``src/repro_torch`` (one ``nvcc`` per
    source, all at once) and print the ``ptxas`` register and spill lines;
-   K5's bfloat16 (tensor-core) kernel at hd 64 must not spill.
+   K5's two tensor-core kernels (bfloat16 and float32) at hd 64 must not
+   spill.
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit, on randomized families (K1 ``lru_hits``, K2 ``fused_levels``, K3a /
    K3b ``basedelta_*_tiles``, K4a ``amc_gather``) and against the plain
    version on the CPU where the card's ``index_add_`` adds in another order
-   (the ordered segment sum, K4b ``amc_gather_segment_sum``, whose families
-   include path E's skew, rows of several vectors a lane, a misaligned
-   table and out-of-range indices); K5 and K6 within stated tolerances
-   (K5's and K6's bfloat16 families include cancelling pairs, where one
-   bfloat16 rounding of P, or of K6's G, w B or S, would show; K6 runs both
+   (the ordered segment sum, whose families are those of
+   ``tests/test_torch_segment_sum.py``: no edges, a segment of 5,000 edges,
+   lengths around its chunk of 32 and its ring of 256, skewed unsorted ids,
+   magnitudes where order matters, signed zeros, subnormals, infinities and
+   NaN, and google's push and pull orders; K4b ``amc_gather_segment_sum``,
+   whose families include path E's skew, rows of several vectors a lane, a
+   misaligned table and out-of-range indices); K5 and K6 within stated
+   tolerances (K5's families include cancelling pairs on both routes, where
+   one bfloat16 rounding of P, or two bfloat16 parts of a float32 operand,
+   would show; K6's bfloat16 families include them, where one bfloat16
+   rounding of its G, w B or S would show; K6 runs both
    of its routes, bfloat16 and float32, and checks that both ran).  K2 runs both of its routes (a
    row's state in shared memory, and in global memory where it is over the
    shared-memory budget) and levels whose ways sum to more than 32; K3b
@@ -34,8 +41,10 @@ Phases (any failure exits non-zero; each prints its seconds):
    kernel against its plain version once more, bit for bit, and time it
    with CUDA events beside its plain version, the card's bound and (where
    one exists) a PyTorch library call (K1 and K2 also with their longest
-   row and the nanoseconds a step of it); then time each of B's K1
-   launches, with its longest row and nanoseconds a step.
+   row and the nanoseconds a step of it; the segment sum's bound with the
+   chain of its longest segment's adds, and ``torch.segment_reduce`` timed
+   as a yardstick); then time each of B's K1 launches, with its longest row
+   and nanoseconds a step.
 7. Main paths C (bfs/notredame, ``SCALED``) and D (bfs/google, ``PAPER``)
    and bfs_do/notredame: the §VI two-run protocol, scored on run 2, must
    reproduce ``tests/data/torch_port_golden_evolving.json`` exactly; then
@@ -66,7 +75,8 @@ Phases (any failure exits non-zero; each prints its seconds):
     plain versions of K5 and K6 (``repro_torch.launch.drift``); then K5 and
     K6 timed at the prefill's shapes beside their plain versions, their
     bounds and (K5) ``scaled_dot_product_attention`` with K5's TFLOP/s, and
-    K5's float32 route at the cross-check's shape beside SDPA in float32.
+    K5's float32 (tensor-core) route at the cross-check's shape beside SDPA
+    in float32, with its two bounds.
     K5 and K6 are also held against their plain versions in phase 2.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
@@ -95,6 +105,8 @@ GOLDEN_EVOLVING = ROOT / "tests" / "data" / "torch_port_golden_evolving.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_port_golden_lm.json"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak (NVIDIA data sheet)
+FADD_CYCLES = 4  # latency of a dependent float32 add on an SM (Hopper)
+H100_SM_MHZ = 1980  # H100 SXM's top SM clock, where nvidia-smi does not say
 PREFETCHERS = ["amc", "vldp"]
 
 
@@ -366,31 +378,75 @@ def k2_resume(blocks, seam, levels, dev) -> float:
     return max(e, e2)
 
 
+def same_bits(got, ref) -> bool:
+    """Equal bit for bit, except that any NaN matches any NaN (the card's
+    and the CPU's adds give NaNs of other signs and payloads)."""
+    import torch
+
+    nan = torch.isnan(ref)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(
+        torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32)))
+
+
+def segment_sum_families():
+    """(name, values, segment ids, segments) of the ordered segment sum's
+    families (``tests/test_torch_segment_sum.py``'s, on the card)."""
+    import numpy as np
+
+    from repro_torch.graphs import make_dataset
+
+    rng = np.random.default_rng(2)
+
+    def spread(e):  # magnitudes where another order gives other bits
+        return (10.0 ** rng.uniform(-6, 3, e) * rng.choice([-1.0, 1.0], e)).astype(np.float32)
+
+    def segments(lens):
+        return rng.permutation(np.repeat(np.arange(len(lens)), lens))
+
+    out = [("no edges", np.zeros(0, np.float32), np.zeros(0, np.int64), 7),
+           ("9 of 10 segments empty", np.ones(3, np.float32), np.full(3, 9), 10),
+           ("one segment of 5,000 edges", spread(5000), np.full(5000, 3), 5)]
+    for n in (8, 32, 64, 256):  # the hoist, the chunk, two chunks, the ring
+        ids = segments([n - 1, n, n + 1, 0, 2 * n, 5])
+        out.append((f"lengths around {n}", spread(len(ids)), ids, 6))
+    ids = segments(np.minimum(rng.zipf(1.6, 3000), 3000))
+    out.append(("skewed lengths, unsorted ids", spread(len(ids)), ids, 3000))
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    sub = tiny * np.float32(2.0**-10)
+    odd = [[-0.0], [-0.0] * 40, [sub, sub, -sub], [sub] * 50, [tiny, -tiny / 2, -tiny / 4],
+           [np.inf, -np.inf], [1.0] * 35 + [-np.inf] + [2.0] * 10, [1.0] * 40 + [np.nan],
+           [3.0e38, 3.0e38, -3.0e38]]
+    ids = rng.permutation(np.concatenate([np.full(len(x), i) for i, x in enumerate(odd)]))
+    vals = np.empty(len(ids), np.float32)
+    for i, x in enumerate(odd):
+        vals[ids == i] = x
+    out.append(("signed zeros, subnormals, infinities, NaN", vals, ids, len(odd)))
+    g = make_dataset("google")
+    for name, dst in (("google push", g.neighbors), ("google pull", g.transpose().edge_sources())):
+        vals = rng.random(len(dst), dtype=np.float32) / 1000
+        vals[rng.random(len(dst)) < 0.5] = 0.0
+        out.append((name, vals, dst, g.num_vertices))
+    return out
+
+
 def segment_sum_check(dev):
     """The ordered segment sum on the card == index_add_ on the CPU, bit for
-    bit, on the google graph's push and pull edge orders."""
+    bit, on its families; returns the max abs error (0)."""
     import numpy as np
     import torch
 
-    from repro_torch.graphs import make_dataset
     from repro_torch.kernels.segment_sum.segment_sum import (
         segment_plan, segment_sum, segment_sum_plain,
     )
 
-    g = make_dataset("google")
-    rng = np.random.default_rng(2)
-    err = 0.0
-    for dst in (g.neighbors, g.transpose().edge_sources()):
-        vals = rng.random(len(dst), dtype=np.float32) / 1000
-        vals[rng.random(len(dst)) < 0.5] = 0.0
-        plan = segment_plan(dst, g.num_vertices, dev)
+    fams = segment_sum_families()
+    for name, vals, ids, n in fams:
+        plan = segment_plan(ids, n, dev)
         got = segment_sum(torch.from_numpy(vals).to(dev), plan).cpu()
-        ref = segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(dst.astype(np.int64)),
-                                g.num_vertices)
-        check(torch.equal(got, ref), "segment_sum: kernel != index_add_ on the CPU")
-        err = max(err, float((got - ref).abs().max()))
-    log("  segment_sum == index_add_ (CPU) bit for bit on google push and pull")
-    return err
+        ref = segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(ids.astype(np.int64)), n)
+        check(same_bits(got, ref), f"segment_sum {name}: kernel != index_add_ on the CPU")
+    log(f"  segment_sum == index_add_ (CPU) bit for bit on {len(fams)} families")
+    return 0.0
 
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
@@ -590,7 +646,8 @@ def k5_inputs(rng, b, sq, skv, h, kv, hd, dtype, dev, cancelling=False):
     """Normal q, k, v; with ``cancelling``, key rows in pairs (the second
     1.05 times the first) with values +v and -v of size ~16, so that each
     output is a small difference of large terms and one bfloat16 rounding of
-    P would show (``tests/test_torch_flash_attn_tc.py``)."""
+    P, or two bfloat16 parts of a float32 operand, would show
+    (``tests/test_torch_flash_attn_tc.py``, ``test_torch_flash_attn_f32tc.py``)."""
     import numpy as np
     import torch
 
@@ -630,14 +687,13 @@ def k5_families(dev):
         ("zamba2 heads, S 4096", 1, 4096, 4096, 32, 32, 64, True, 0, 0),
         ("hd 128 window 128, S 1000", 2, 1000, 1000, 4, 4, 128, True, 128, 0),
         ("GQA 4, q_offset 300 into 700 keys", 2, 400, 700, 8, 2, 64, True, 0, 300),
+        ("cancelling pairs, window 10 hd 64", 1, 300, 300, 4, 4, 64, True, 10, 0),
     ]
     err, n = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         for name, b, sq, skv, h, kv, hd, causal, win, qoff in cases:
             cancelling = name.startswith("cancelling")
-            if cancelling and dtype != torch.bfloat16:
-                continue  # they test the bfloat16 route's split of P
             q, k, v = k5_inputs(rng, b, sq, skv, h, kv, hd, dtype, dev, cancelling)
             got = flash_attention(q, k, v, causal=causal, sliding_window=win, q_offset=qoff)
             ref = blocked_attention_plain(q, k, v, causal, win, qoff)
@@ -933,8 +989,23 @@ def time_kernels(wl, dev, errs, launches, k1_calls):
     e3 = max_err([segment_sum(vals, plan).cpu()], [ref3])
     check(e3 == 0, f"segment_sum at main path B's shape: kernel != index_add_ (max err {e3})")
     errs["segment_sum"] = max(errs["segment_sum"], e3)
+    # torch.segment_reduce over the values gathered into segment order: two
+    # calls, and its own order of adds; a yardstick, and the library call
+    # only if it gives the same bits
+    perm = plan.perm.long()
+    reduce = lambda: torch.segment_reduce(vals[perm], "sum", offsets=plan.offsets)  # noqa: E731
+    reduce_ms = cuda_ms(reduce, dev, reps=20)
+    reduce_same = same_bits(reduce().cpu(), ref3)
     e = graph.num_edges
-    b3, by3 = bound(e * 8 + (graph.num_vertices + 1) * 8 + graph.num_vertices * 4, e)
+    lens = plan.offsets[1:] - plan.offsets[:-1]
+    longest3 = int(lens.max())
+    # the bound: the bytes, or the longest segment's chain of dependent
+    # float32 adds (4 cycles each at the SM's top clock), whichever is longer
+    clock = sm_clock_hz()
+    chain3 = longest3 * FADD_CYCLES / clock * 1e3
+    bytes3 = (e * 8 + (graph.num_vertices + 1) * 8 + graph.num_vertices * 4
+              + plan.heavy.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    b3, by3 = (chain3, "operations") if chain3 >= bytes3 else (bytes3, "bytes")
     out.append(dict(
         name="segment_sum", route="cuda",
         source="src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
@@ -943,10 +1014,19 @@ def time_kernels(wl, dev, errs, launches, k1_calls):
         matches_plain=errs["segment_sum"] == 0,
         # index_add_ on the card adds with atomics, in no fixed order: it is
         # the plain version's time, not a library call for the same function
-        ms=ms3, host_us=host3, plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=None,
-        shape=f"{e} edges into {graph.num_vertices} segments",
+        ms=ms3, host_us=host3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
+        library_ms=reduce_ms if reduce_same else None,
+        bound_bytes_ms=bytes3, bound_chain_ms=chain3, sm_clock_mhz=clock / 1e6,
+        segment_reduce_ms=reduce_ms, segment_reduce_bit_equal=reduce_same,
+        longest_segment=longest3, heavy_segments=plan.heavy.numel(),
+        shape=f"{e} edges into {graph.num_vertices} segments ({plan.heavy.numel()} of more "
+              f"than 32 edges, the longest {longest3})",
     ))
-    log(f"  segment_sum: {ms3:.4f} ms (index_add_, atomic, {plain3:.4f} ms, bound {b3:.5f} ms)")
+    log(f"  segment_sum: {ms3:.4f} ms (index_add_, atomic, {plain3:.4f} ms; bound {b3:.5f} ms "
+        f"by {by3}: bytes {bytes3:.5f}, the longest segment's {longest3} adds {chain3:.5f} at "
+        f"{clock / 1e6:.0f} MHz); {plan.heavy.numel()} segments on warps; "
+        f"torch.segment_reduce {reduce_ms:.4f} ms, "
+        f"{'the same bits' if reduce_same else 'other bits'}")
     return out
 
 
@@ -1507,9 +1587,12 @@ def time_lm_kernels(keep, dev, errs, launches):
 
 
 def time_k5_float32(b, h, hd, dev):
-    """K5's float32 route at the cross-check's attention shape ((b, 512, h,
-    hd), causal, random inputs from a seed), held against its plain version
-    and timed beside SDPA in float32."""
+    """K5's float32 route (the tensor cores, three bf16 parts a side) at
+    the cross-check's attention shape ((b, 512, h, hd), causal, random
+    inputs from a seed), held against its plain version and timed beside
+    SDPA in float32, with its two bounds: the float32 work at the CUDA
+    cores' peak, and the split's bf16 products (six a product) at the
+    tensor cores' peak, the lower of the two and the design it assumes."""
     import numpy as np
     import torch
 
@@ -1520,15 +1603,30 @@ def time_k5_float32(b, h, hd, dev):
     q, k, v = k5_inputs(np.random.default_rng(8), b, s, s, h, h, hd, torch.float32, dev)
     run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
     ms = cuda_ms(run, dev, reps=10)
-    err = close(run(), blocked_attention_plain(q, k, v, True), what="K5 float32 route",
-                **ATTN_TOL["float32"])
+    ref = blocked_attention_plain(q, k, v, True)
+    err = close(run(), ref, what="K5 float32 route", **ATTN_TOL["float32"])
+    plain = cuda_ms(lambda: blocked_attention_plain(q, k, v, True), dev, reps=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), dev, reps=10)
-    log(f"  flash_attention float32 route at ({b}, {s}, {h}, {hd}), causal: {ms:.3f} ms "
-        f"(SDPA in float32 {lib:.3f} ms), max abs err against the plain version {err:.3g}")
-    return dict(shape=f"({b}, {s}, {h}, {hd}) float32, causal", ms=ms, library_ms=lib,
-                max_abs_err=err)
+    flop = 4 * hd * b * h * (s * (s + 1) // 2)
+    nbytes = 4 * q.numel() * 4
+    f32_ms, _ = bound(nbytes, flop, FP32_OPS_PER_S)
+    split_ms, split_by = bound(nbytes, 6 * flop, BF16_OPS_PER_S)
+    log(f"  flash_attention float32 route (tensor cores, 3 bf16 parts a side) at ({b}, {s}, {h}, "
+        f"{hd}), causal: {ms:.4f} ms (plain {plain:.3f} ms, SDPA in float32 {lib:.4f} ms; bound "
+        f"{split_ms:.4f} ms: {6 * flop / 1e9:.1f} GFLOP of bf16 products at 989 TFLOP/s; "
+        f"{f32_ms:.4f} ms for {flop / 1e9:.2f} GFLOP at 67 TFLOP/s), "
+        f"{flop / ms * 1e-9:.1f} TFLOP/s of float32 work; max abs err against the plain version "
+        f"{err:.3g}")
+    return dict(design="tensor cores: mma.sync m16n8k16, scaled Q, K, P and V each in 3 bf16 "
+                       "parts, 6 products a product",
+                shape=f"({b}, {s}, {h}, {hd}) float32, causal", ms=ms, plain_ms=plain,
+                library_ms=lib, max_abs_err=err, bound_ms=min(split_ms, f32_ms),
+                bound_by=split_by,
+                bound_note="bf16 products of the 3-part split at the tensor cores' peak; the "
+                           "float32 work at the CUDA cores' peak is bound_f32_ms",
+                bound_f32_ms=f32_ms, bound_split_ms=split_ms, tflops=flop / ms * 1e-9)
 
 
 def profile_share(what, fn, dev):
@@ -1626,18 +1724,30 @@ def path_f(dev, run_path, errs, totals):
 # ------------------------------------------------------------ main
 
 
-def k5_bf16_spills(report) -> int:
-    """Spill bytes ``ptxas`` reported for ``flash_attn_tc_kernel<64>``
-    (its report follows the line that names the entry)."""
+def k5_spills(report, kernel) -> int:
+    """Spill bytes ``ptxas`` reported for ``kernel<64>`` (its report
+    follows the line that names the entry)."""
     spills, inside = None, False
     for line in report:
         if "Compiling entry" in line:
-            inside = "flash_attn_tc_kernel" in line and "ILi64E" in line
+            inside = kernel in line and "ILi64E" in line
         elif inside and "spill" in line:
             spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
             inside = False
-    check(spills is not None, "no ptxas report for K5's bfloat16 kernel at hd 64")
+    check(spills is not None, f"no ptxas report for K5's {kernel} at hd 64")
     return spills
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+        return float(r.stdout.strip().splitlines()[0]) * 1e6
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        log(f"  nvidia-smi gave no SM clock: the bound takes H100 SXM's {H100_SM_MHZ} MHz")
+        return H100_SM_MHZ * 1e6
 
 
 def gpu_line() -> str:
@@ -1739,9 +1849,11 @@ def main() -> int:
             continue
         for line in report:
             log(f"  [{src.name}] {line}")
-    spills = k5_bf16_spills(build.ptxas_report(fa_mod.SOURCE))
-    log(f"  K5 bfloat16 route at hd 64: {spills} bytes of spill stores and loads")
-    check(spills == 0, f"K5's bfloat16 route spills {spills} bytes at hd 64")
+    for route, kernel in (("bfloat16", "flash_attn_tc_kernel"),
+                          ("float32", "flash_attn_f32tc_kernel")):
+        spills = k5_spills(build.ptxas_report(fa_mod.SOURCE), kernel)
+        log(f"  K5 {route} route at hd 64: {spills} bytes of spill stores and loads")
+        check(spills == 0, f"K5's {route} route spills {spills} bytes at hd 64")
 
     phase("phase 2: kernels vs plain on the card")
     k3_err, k4_err = k3_families(dev), k4_families(dev)

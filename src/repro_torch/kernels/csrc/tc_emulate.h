@@ -4,6 +4,8 @@
 // tc_smem_off; fragments are indexed [lane][register][half].  The port
 // itself never compiles this header.
 #pragma once
+#include <math.h>
+
 #include <utility>
 
 #include "tc_frag.h"
@@ -41,6 +43,57 @@ inline void tce_mma(float c[32][4], const float a[32][4][2], const float b[32][2
       float sum = c[l][i];
       for (int kk = 0; kk < 16; ++kk) sum += A[tc_c_row(l, i)][kk] * B[kk][tc_c_col(l, i)];
       c[l][i] = sum;
+    }
+}
+
+// floor(log2 |x|) of a finite float x != 0.
+inline int tce_exponent(float x) {
+  const int biased = (int)((tc_f32_bits(x) >> 23) & 0xffu);
+  if (biased) return biased - 127;
+  int e;
+  frexpf(x, &e);  // a subnormal: |x| = m 2^e, m in [0.5, 1)
+  return e - 1;
+}
+
+// tce_mma with each output summed as the H100's mma.sync m16n8k16 sums it
+// (the model that tools/mma_accumulation.py fits to the card's results,
+// bit for bit on all of its outputs): the 16 products are exact; each
+// product's exponent is the sum of its factors' exponents (its leading bit
+// may lie one above it), the addend's its own; every term, the addend
+// included, is cut toward zero to a multiple of 2^(E - TCE_MMA_FRAC), E the
+// largest of those exponents; the cut terms' exact sum is rounded to
+// float32 toward zero.  For the emulations whose tolerance is float32's
+// own, where the order of a float32 sum, or its rounding, would differ
+// from the card's.  Inputs are finite.
+#define TCE_MMA_FRAC 25
+#define TCE_ZERO_EXP (-(1 << 20))  // the exponent taken for a zero factor
+inline void tce_mma_fused(float c[32][4], const float a[32][4][2], const float b[32][2][2]) {
+  float A[16][16], B[16][8];
+  int eA[16][16], eB[16][8];
+  for (int l = 0; l < 32; ++l) {
+    for (int i = 0; i < 8; ++i) A[tc_a_row(l, i)][tc_a_col(l, i)] = a[l][i / 2][i % 2];
+    for (int i = 0; i < 4; ++i) B[tc_b_k(l, i)][tc_b_n(l, i)] = b[l][i / 2][i % 2];
+  }
+  for (int r = 0; r < 16; ++r)
+    for (int k = 0; k < 16; ++k) eA[r][k] = A[r][k] != 0.0f ? tce_exponent(A[r][k]) : TCE_ZERO_EXP;
+  for (int k = 0; k < 16; ++k)
+    for (int n = 0; n < 8; ++n) eB[k][n] = B[k][n] != 0.0f ? tce_exponent(B[k][n]) : TCE_ZERO_EXP;
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 4; ++i) {
+      const int row = tc_c_row(l, i), col = tc_c_col(l, i);
+      const float addend = c[l][i];
+      int top = addend != 0.0f ? tce_exponent(addend) : 2 * TCE_ZERO_EXP;
+      for (int k = 0; k < 16; ++k) top = eA[row][k] + eB[k][col] > top ? eA[row][k] + eB[k][col] : top;
+      if (top < TCE_ZERO_EXP / 2) {  // no term is nonzero
+        c[l][i] = 0.0f;
+        continue;
+      }
+      const double step = ldexp(1.0, top - TCE_MMA_FRAC), inv = ldexp(1.0, TCE_MMA_FRAC - top);
+      double sum = trunc(addend * inv) * step;  // exact: fewer than 2^32 steps in all
+      for (int k = 0; k < 16; ++k) sum += trunc((double)A[row][k] * B[k][col] * inv) * step;
+      float f = (float)sum;
+      if (fabs((double)f) > fabs(sum)) f = nextafterf(f, 0.0f);
+      c[l][i] = f;
     }
 }
 

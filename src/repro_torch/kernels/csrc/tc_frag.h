@@ -1,8 +1,8 @@
-// Tensor-core building blocks shared by the port's mma.sync kernels (K5's
-// bfloat16 route in flash_attn/csrc/flash_attn.cu, K6 in
-// ssd_scan/csrc/ssd_scan.cu), and by their CPU tests, which compile them
-// with g++ (each kernel's csrc/host_step_test.cpp, with -I on this
-// directory, as nvcc is given in kernels/build.py).
+// Tensor-core building blocks shared by the port's mma.sync kernels (K5 in
+// flash_attn/csrc/flash_attn.cu, K6 in ssd_scan/csrc/ssd_scan.cu), and by
+// their CPU tests, which compile them with g++ (each kernel's
+// csrc/host_step_test.cpp, with -I on this directory, as nvcc is given in
+// kernels/build.py).
 //
 // mma.sync.m16n8k16 takes bfloat16 inputs and float32 accumulators.  Lane
 // l's fragment elements follow the PTX ISA's layout with g = l / 4 and
@@ -17,7 +17,8 @@
 //
 // A register holds two bf16 values, the lower column in its low half.  A
 // float32 operand goes in as two bfloat16 parts, hi = bf16(x) and lo =
-// bf16(x - hi), in two mma into one accumulator (tc_split_bf16).
+// bf16(x - hi), in two mma into one accumulator (tc_split_bf16), or in
+// three parts (tc_split_parts) where float32's precision must hold.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -114,6 +115,20 @@ TC_HD void tc_split_pack(float x0, float x1, uint32_t* hi, uint32_t* lo) {
   *hi = tc_pack_bf16x2(h0, h1);
   *lo = tc_pack_bf16x2(l0, l1);
 #endif
+}
+
+// x0, x1 as K bf16 parts each, packed in registers: part k is
+// bf16(x - parts 0 .. k-1), the differences exact in float32.  A product
+// of a-part and b-part operands takes the pairs of parts (i, j) with
+// i + j < max(a, b): two parts a side (three products) hold it to about
+// 2^-16, three (six products) to about 2^-24, float32's own precision.
+template <int K>
+TC_HD void tc_split_parts(float x0, float x1, uint32_t out[K]) {
+  TC_UNROLL for (int k = 0; k < K; ++k) {
+    out[k] = tc_pack_round(x0, x1);
+    x0 -= tc_unpack_lo(out[k]);
+    x1 -= tc_unpack_hi(out[k]);
+  }
 }
 
 // Shared-memory layout of a (rows x width) bf16 tile: rows of `width`

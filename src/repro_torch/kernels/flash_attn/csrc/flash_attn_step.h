@@ -2,18 +2,15 @@
 // CUDA kernels and by the CPU tests, which compile this header with g++
 // through host_step_test.cpp.
 //
-// The float32 route's per-row step comes first; the bfloat16 tensor-core
-// route's fragment maps, swizzle, masks and softmax step follow below.
-//
-// One query row's online softmax over one KV tile: the masked scores of the
-// tile, the new running max, the rescale of the running sum and of the
-// float32 accumulator, and the accumulation of the tile's values.  A row's
-// dimensions may be split over several threads (`d0`, `dstep`, `nd`: the
-// thread owns dimensions d0, d0 + dstep, ...); on the host one "thread"
-// owns them all.  Masked scores are -1e30, as in blocked_attention and the
-// Pallas kernel, so a tile that is wholly masked for a row contributes
-// exp(0) terms that the next real tile's rescale exp(m_prev - m_new)
-// wipes out exactly.
+// Both routes run on the tensor cores: one warp owns strips of 16 query
+// rows and runs mma.sync.m16n8k16 (bf16 inputs, float32 accumulators);
+// the fragment maps, the swizzle, the ldmatrix addresses and the bf16
+// splits are tc_frag.h's.  The masks, the tile skipping and the online
+// softmax on fragments are shared; the bfloat16 route's strips and P
+// split, then the float32 route's tiles and three-part split follow.
+// Masked scores are -1e30, as in blocked_attention and the Pallas kernel,
+// so a tile that is wholly masked for a row contributes exp(0) terms that
+// the next real tile's rescale exp(m_prev - m_new) wipes out exactly.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -73,53 +70,11 @@ FA_HD void fa_kv_tiles(int64_t q0, int64_t bq, int64_t q_offset, int64_t skv,
   if (*t_hi < *t_lo) *t_hi = *t_lo;
 }
 
-// This thread's part of the dot product of a scaled query row with one
-// key row: sum over d = d0 + i * dstep, i < nd.
-FA_HD float fa_partial_dot(const float* q_part, const float* k_row, int d0,
-                           int dstep, int nd) {
-  float s = 0.0f;
-  for (int i = 0; i < nd; ++i) s += q_part[i] * k_row[d0 + i * dstep];
-  return s;
-}
-
-// One row's online-softmax update over a tile of `n` scores `s` (already
-// masked to FA_NEG_INF) and the tile's value rows (`v_tile`, row stride
-// `v_stride`): m, l and this thread's accumulator part are updated in
-// place.  `s` is overwritten with the probabilities.
-FA_HD void fa_online_update(float* s, int n, const float* v_tile, int v_stride,
-                            int d0, int dstep, int nd, float* m, float* l,
-                            float* acc_part) {
-  float m_new = *m;
-  for (int j = 0; j < n; ++j) m_new = s[j] > m_new ? s[j] : m_new;
-  const float corr = expf(*m - m_new);
-  float psum = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    s[j] = expf(s[j] - m_new);
-    psum += s[j];
-  }
-  *l = *l * corr + psum;
-  for (int i = 0; i < nd; ++i) {
-    float a = acc_part[i] * corr;
-    const int d = d0 + i * dstep;
-    for (int j = 0; j < n; ++j) a += s[j] * v_tile[j * v_stride + d];
-    acc_part[i] = a;
-  }
-  *m = m_new;
-}
-
 // The output of a row: acc / max(l, 1e-30).
 FA_HD float fa_finish(float acc, float l) { return acc / (l > 1e-30f ? l : 1e-30f); }
 
 // ------------------------------------------------------------------------
-// The bfloat16 route: one warp owns strips of 16 query rows and runs
-// mma.sync.m16n8k16 (bf16 inputs, float32 accumulators) on fragments that
-// ldmatrix brings from shared memory; the fragment maps, the swizzle, the
-// ldmatrix addresses and the bf16 split are tc_frag.h's.
-
-// 16-row strips a warp owns in the bfloat16 kernel (4 warps a block): two
-// at hd <= 64, so that every K and V fragment from shared memory serves
-// two mma, and one at hd 128, where two would not fit the registers.
-#define FA_TC_STRIPS(hd) ((hd) <= 64 ? 2 : 1)
+// The tensor-core routes.
 
 // Whether a tile of query positions [qpos0, qpos0 + nq) against key
 // positions [kpos0, kpos0 + nk) needs the mask: false only if fa_allowed
@@ -190,6 +145,14 @@ FA_HD void fa_frag_update(float* s, float m[2], const float mx[2], float lpart[2
   }
 }
 
+// ------------------------------------------------------------------------
+// The bfloat16 route (flash_attn_tc_kernel).
+
+// 16-row strips a warp owns in the bfloat16 kernel (4 warps a block): two
+// at hd <= 64, so that every K and V fragment from shared memory serves
+// two mma, and one at hd 128, where two would not fit the registers.
+#define FA_TC_STRIPS(hd) ((hd) <= 64 ? 2 : 1)
+
 // The A fragment (registers a0..a3) of P's key k-step j, straight from
 // the accumulators of key n-tiles 2 j (`c0`) and 2 j + 1 (`c1`), split
 // into bf16 parts: a0 = c0[0..1], a1 = c0[2..3], a2 = c1[0..1],
@@ -200,4 +163,37 @@ FA_HD void fa_p_fragments(const float* c0, const float* c1, uint32_t a_hi[4],
   tc_split_pack(c0[2], c0[3], &a_hi[1], &a_lo[1]);
   tc_split_pack(c1[0], c1[1], &a_hi[2], &a_lo[2]);
   tc_split_pack(c1[2], c1[3], &a_hi[3], &a_lo[3]);
+}
+
+// ------------------------------------------------------------------------
+// The float32 route (flash_attn_f32tc_kernel): every float32 operand as
+// FA_F32_PARTS bf16 parts (tc_split_parts), each product as the pairs of
+// parts (i, j) with i + j < FA_F32_PARTS (fa_pair_used), into float32
+// accumulators.  One 16-row strip a warp, 4 warps a block.
+
+#define FA_F32_PARTS 3
+// Keys a K / V tile: 32, and 64 at hd 32.  With each tile split once into
+// bf16 planes, 32-key tiles keep two blocks an SM at hd 64 and ran fastest
+// (tools/kernel_variants.py k5f32); at hd 32 they spill.
+#ifndef FA_F32_BK
+#define FA_F32_BK(hd) ((hd) <= 32 ? 64 : 32)
+#endif
+// Whether a warp holds its Q parts in registers for the whole block (hd
+// <= 64: 12 registers a k-step) or loads them from shared memory each
+// k-step (hd 128, where 96 registers of Q beside a 64-register accumulator
+// would spill).
+#define FA_F32_QREG(hd) ((hd) <= 64)
+
+// Whether a product of two FA_F32_PARTS-part operands takes parts (i, j).
+FA_HD bool fa_pair_used(int i, int j) { return i + j < FA_F32_PARTS; }
+
+// P's A fragment of key k-step j (as fa_p_fragments) in FA_F32_PARTS parts:
+// a[q] holds part q of a0..a3.
+FA_HD void fa_p_parts(const float* c0, const float* c1, uint32_t a[FA_F32_PARTS][4]) {
+  const float* src[4] = {c0, c0 + 2, c1, c1 + 2};
+  FA_UNROLL for (int r = 0; r < 4; ++r) {
+    uint32_t part[FA_F32_PARTS];
+    tc_split_parts<FA_F32_PARTS>(src[r][0], src[r][1], part);
+    FA_UNROLL for (int q = 0; q < FA_F32_PARTS; ++q) a[q][r] = part[q];
+  }
 }

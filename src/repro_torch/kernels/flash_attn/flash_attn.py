@@ -8,10 +8,12 @@ q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``, float32 or bfloat16,
 ``hd`` in {32, 64, 128}.  On a CUDA tensor the wrapper launches the kernel
 in ``csrc/flash_attn.cu``; on a CPU tensor it runs the plain version
 :func:`~repro_torch.kernels.flash_attn.ref.blocked_attention_plain`.
-The kernel's route follows the dtype and nothing else: bfloat16 runs on
-the tensor cores (``mma.sync`` with P split into two bfloat16 parts),
-float32 on the CUDA cores in float32 (TF32 could not hold float32's
-tolerance).
+The kernel's route follows the dtype and nothing else; both run on the
+tensor cores (``mma.sync``): bfloat16 with P split into two bfloat16
+parts, float32 with every operand (scaled Q, K, P, V) split into three
+bfloat16 parts and each product taken as six ``mma`` of pairs of parts,
+which holds float32's tolerance (one TF32 or bfloat16 product could
+not).
 
 The kernel follows blocked_attention's query scaling (``q * scale`` in the
 input dtype, then float32); the Pallas kernel scales after the cast.  The
@@ -72,7 +74,7 @@ def flash_attention(
     if b * h > 65535:
         raise ValueError(f"flash_attention: batch x heads {b * h} > 65535 on CUDA")
     q, k, v = (t.contiguous() for t in (q, k, v))
-    # the bfloat16 route copies 16-byte segments with cp.async
+    # both routes copy 16-byte segments with cp.async
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
@@ -89,9 +91,11 @@ def flash_attention(
     if rc:
         raise RuntimeError(f"flash_attention launch failed with CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.routes[str(q.dtype).split(".")[1]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = {"bfloat16": 0, "float32": 0}  # launches by route
 
 __all__ = ["DTYPES", "HEAD_DIMS", "SOURCE", "flash_attention"]

@@ -4,10 +4,12 @@
 sequentially in edge order from 0.0 — the float sequence of
 ``jax.ops.segment_sum`` on XLA-CPU and of ``index_add_`` on the CPU, which
 the plain version uses.  On a CUDA tensor :func:`segment_sum` launches
-``csrc/segment_sum.cu``, one thread per segment walking its edges through
-a stable destination sort (``perm``, ``offsets``) built once per edge
-array by :func:`segment_plan`; ``index_add_`` on CUDA adds with atomics in
-an order that changes from run to run, so it cannot stand in.
+``csrc/segment_sum.cu``, which walks each segment's edges through a stable
+destination sort (``perm``, ``offsets``) built once per edge array by
+:func:`segment_plan`: a warp for each segment of more than ``CHUNK`` edges
+(the plan's ``heavy`` list, longest first), a thread for each other one.
+``index_add_`` on CUDA adds with atomics in an order that changes from run
+to run, so it cannot stand in.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels.build import load, ptr, stream_ptr
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_sum.cu"
+CHUNK = 32  # SS_CHUNK of csrc/segment_sum_step.h: longer segments take a warp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +33,7 @@ class SegmentPlan:
     ids: torch.Tensor  # (E,) int64 segment id per edge
     perm: torch.Tensor  # (E,) int32 edge ids, stably sorted by segment
     offsets: torch.Tensor  # (num_segments + 1,) int64 segment starts in perm
+    heavy: torch.Tensor  # (H,) int32 segments of more than CHUNK edges, longest first
     num_segments: int
 
 
@@ -39,12 +43,16 @@ def segment_plan(segment_ids, num_segments: int, device) -> SegmentPlan:
     if len(ids) >= 2**31:
         raise ValueError("segment_plan: edge ids must fit in int32")
     perm = np.argsort(ids, kind="stable").astype(np.int32)
+    counts = np.bincount(ids, minlength=num_segments)
     offsets = np.zeros(num_segments + 1, dtype=np.int64)
-    np.cumsum(np.bincount(ids, minlength=num_segments), out=offsets[1:])
+    np.cumsum(counts, out=offsets[1:])
+    heavy = np.flatnonzero(counts > CHUNK)
+    heavy = heavy[np.argsort(-counts[heavy], kind="stable")].astype(np.int32)
     return SegmentPlan(
         ids=torch.from_numpy(ids).to(device),
         perm=torch.from_numpy(perm).to(device),
         offsets=torch.from_numpy(offsets).to(device),
+        heavy=torch.from_numpy(heavy).to(device),
         num_segments=num_segments,
     )
 
@@ -63,11 +71,12 @@ def segment_sum(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     out = torch.empty(plan.num_segments, dtype=torch.float32, device=values.device)
     lib = load(SOURCE)
     fn = lib.segment_sum_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     rc = fn(
         ptr(values), ptr(plan.perm), ptr(plan.offsets), plan.num_segments,
-        ptr(out), stream_ptr(values.device),
+        ptr(plan.heavy), plan.heavy.numel(), ptr(out), stream_ptr(values.device),
     )
     if rc:
         raise RuntimeError(f"segment_sum launch failed with CUDA error {rc}")
@@ -84,4 +93,4 @@ def segment_sum_plain(values, segment_ids, num_segments: int) -> torch.Tensor:
     return out.index_add_(0, segment_ids, values)
 
 
-__all__ = ["SOURCE", "SegmentPlan", "segment_plan", "segment_sum", "segment_sum_plain"]
+__all__ = ["CHUNK", "SOURCE", "SegmentPlan", "segment_plan", "segment_sum", "segment_sum_plain"]

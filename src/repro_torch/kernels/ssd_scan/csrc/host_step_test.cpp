@@ -80,7 +80,7 @@ int valid_rows(int r0, int rows, int chunk, int64_t c0, int64_t s_len) {
   return v < 0 ? 0 : (v > rows ? rows : (int)v);
 }
 
-// x as k bf16 parts (ssd_split_pack's rule), into part[0 .. k-1].
+// x as k bf16 parts (tc_split_parts's rule), into part[0 .. k-1].
 void split_parts(float x, int k, float* part) {
   for (int q = 0; q < k; ++q) {
     part[q] = tc_round_bf16(x);

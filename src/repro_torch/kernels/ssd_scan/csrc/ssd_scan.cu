@@ -87,7 +87,7 @@ struct Parts<float> {
 // Rows [0, rows) of W values each, row r at base + r * stride, into the
 // swizzled tile planes at `tile` (plane q at tile + q * rows * W); rows at
 // or past `valid` are zero-filled.  bf16 (one plane): cp.async, 16 bytes a
-// request.  float32: loaded, split into K planes (ssd_split_pack), stored.
+// request.  float32: loaded, split into K planes (tc_split_parts), stored.
 template <int W, int K>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* tile, const __nv_bfloat16* base,
                                           int64_t stride, int rows, int valid) {
@@ -119,7 +119,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* tile, const float* base
     }
     uint32_t part[4][K];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ssd_split_pack<K>(v[2 * j], v[2 * j + 1], part[j]);
+    for (int j = 0; j < 4; ++j) tc_split_parts<K>(v[2 * j], v[2 * j + 1], part[j]);
     const int off = tc_smem_off(r, c * 8, W);
 #pragma unroll
     for (int k = 0; k < K; ++k)
@@ -360,8 +360,8 @@ ssd_carry_kernel(const float* __restrict__ ds, const float* __restrict__ last,
   for (int64_t c = 0; c < nc; ++c) {
     const float4 dn = c + 1 < nc ? dsq(c + 1) : d;
     uint32_t lo2[SP], hi2[SP];
-    ssd_split_pack<SP>(s[0], s[1], lo2);
-    ssd_split_pack<SP>(s[2], s[3], hi2);
+    tc_split_parts<SP>(s[0], s[1], lo2);
+    tc_split_parts<SP>(s[2], s[3], hi2);
     __nv_bfloat16* out = planes + ((bi * nc + c) * h + head) * (int64_t)(SP * N * P) + e0;
 #pragma unroll
     for (int q = 0; q < SP; ++q)

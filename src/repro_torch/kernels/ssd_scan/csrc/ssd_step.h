@@ -53,7 +53,7 @@ struct float4 {
 //
 // The products run on mma.sync.m16n8k16 (tc_frag.h), whose operands are
 // bfloat16.  A float32 operand goes in as a sum of bf16 parts
-// (ssd_split_pack): G, w B and S always, in 2 parts on the bfloat16 route
+// (tc_split_parts): G, w B and S always, in 2 parts on the bfloat16 route
 // (whose x, B and C are exact) and in SSD_F32_PARTS on the float32 route,
 // where x, B and C are split too.  A product of an a-part operand and a
 // b-part one takes the pairs of parts (i, j) with i + j < max(a, b)
@@ -80,17 +80,6 @@ SSD_HD int ssd_op_parts(int is_bf16) { return is_bf16 ? 2 : SSD_F32_PARTS; }
 // Whether a product of an a-part and a b-part operand takes parts (i, j).
 SSD_HD bool ssd_pair_used(int i, int j, int a_parts, int b_parts) {
   return i + j < (a_parts > b_parts ? a_parts : b_parts);
-}
-
-// x0, x1 as K bf16 parts each, packed in registers: part k is
-// bf16(x - parts 0 .. k-1), the differences exact in float32.
-template <int K>
-SSD_HD void ssd_split_pack(float x0, float x1, uint32_t out[K]) {
-  TC_UNROLL for (int k = 0; k < K; ++k) {
-    out[k] = tc_pack_round(x0, x1);
-    x0 -= tc_unpack_lo(out[k]);
-    x1 -= tc_unpack_hi(out[k]);
-  }
 }
 
 // Padded chunk length: a chunk of at most 64 rounds up to whole 16-row mma
@@ -176,7 +165,7 @@ SSD_HD void ssd_g_fragment(int lane, const float* cb, int cb_stride, int r0, int
   }
   TC_UNROLL for (int j = 0; j < 4; ++j) {
     uint32_t part[K];
-    ssd_split_pack<K>(v[2 * j], v[2 * j + 1], part);
+    tc_split_parts<K>(v[2 * j], v[2 * j + 1], part);
     TC_UNROLL for (int k = 0; k < K; ++k) a[k][j] = part[k];
   }
 }
@@ -196,7 +185,7 @@ SSD_HD void ssd_wb_fragment(int lane, const uint32_t b[KB][4], int s0, const flo
     }
     const int s = s0 + tc_a_col(lane, 2 * j);
     uint32_t part[K];
-    ssd_split_pack<K>(v0 * w[s], v1 * w[s + 1], part);
+    tc_split_parts<K>(v0 * w[s], v1 * w[s + 1], part);
     TC_UNROLL for (int k = 0; k < K; ++k) a[k][j] = part[k];
   }
 }

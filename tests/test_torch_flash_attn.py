@@ -2,8 +2,9 @@
 
 The plain PyTorch version (what the K5 wrapper runs on a CPU tensor) and a
 g++ build of the CUDA step header ``csrc/flash_attn_step.h`` (through the
-test-only harness ``csrc/host_step_test.cpp``: the per-row online softmax
-and the tile skipping the GPU runs) are held against the JAX oracle
+test-only harness ``csrc/host_step_test.cpp``: each dtype's tensor-core
+route, ``host_flash_attn_tc`` and ``host_flash_attn_f32tc``, with the tile
+skipping the GPU runs) are held against the JAX oracle
 ``attention_ref``, the Pallas kernel ``mha`` in interpret mode and the
 model's ``blocked_attention``, on the shapes of ``tests/test_kernels.py``
 and ``tests/test_ssm_moe_attn.py``.  Inputs come from a numpy seed.  The
@@ -182,22 +183,24 @@ def host_fa(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.host_flash_attn.argtypes = [vp] * 4 + [i64] * 3 + [ci] * 4 + [
-        ctypes.c_float, ci, i64, i64, ci]
-    lib.host_flash_attn.restype = ci
+    for route in (lib.host_flash_attn_tc, lib.host_flash_attn_f32tc):
+        route.argtypes = [vp] * 4 + [i64] * 3 + [ci] * 3 + [ctypes.c_float, ci, i64, i64, ci]
+        route.restype = ci
     return lib
 
 
 def host_attention(lib, q, k, v, causal, win, q_offset):
-    """The step header's result for torch inputs, rounded to q's dtype."""
+    """The emulated route of q's dtype (bfloat16: P split in two parts;
+    float32: every operand in three) for torch inputs, in q's dtype."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qf, kf, vf = (t.float().contiguous().numpy() for t in (q, k, v))
     out = np.zeros(qf.shape, np.float32)
     scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))
-    rc = lib.host_flash_attn(qf.ctypes.data, kf.ctypes.data, vf.ctypes.data, out.ctypes.data,
-                             b, sq, skv, h, kvh, hd, int(q.dtype == torch.bfloat16), scale,
-                             int(causal), win, q_offset, 64 if hd <= 64 else 32)
+    bf16 = q.dtype == torch.bfloat16
+    route = lib.host_flash_attn_tc if bf16 else lib.host_flash_attn_f32tc
+    rc = route(qf.ctypes.data, kf.ctypes.data, vf.ctypes.data, out.ctypes.data, b, sq, skv, h,
+               kvh, hd, scale, int(causal), win, q_offset, 1 if bf16 else 3)
     assert rc == 0
     return torch.from_numpy(out).to(q.dtype)
 

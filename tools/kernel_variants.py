@@ -3,7 +3,8 @@
 card, at the shapes of the main paths, by building variants of the
 committed sources.
 
-    python3 tools/kernel_variants.py [k5] [k4b] [k2] [k3b] [k6] [k1]   (default: all)
+    python3 tools/kernel_variants.py [k5] [k4b] [k2] [k3b] [k6] [k1] [k5f32] [segsum]
+                                                                     (default: all)
 
 Each variant is the committed ``.cu`` file with one constant replaced (or,
 for the designs a kernel replaced, the earlier kernel rebuilt from the
@@ -51,8 +52,29 @@ directly.
   thread a row that loads each access and stores each hit byte itself
   (the design before, ``lru_row``).
 
+- K5's float32 route (``k5f32``) at the cross-check's shape (4, 512, 32,
+  64) and at (4, 2048, 32, 64), float32 causal: the tensor-core kernel,
+  which splits each float32 K / V tile once into bf16 planes read by
+  ldmatrix, with 32-key tiles (the kernel's choice) and 64 (``FA_F32_BK``),
+  against each warp splitting the K and V values of its own fragments from
+  padded float32 tiles (``kernel_variants_csrc/fa_f32_per_warp.cuh``), and
+  with S's six pair products in one accumulator (its error reported, not
+  held: on the cancelling pairs of ``tests/test_torch_flash_attn_f32tc.py``
+  the card's cut of each term puts it at the tolerance's edge); a
+  register-blocked design on the CUDA cores and the scalar kernel it
+  replaced (``kernel_variants_csrc/fa_f32_cuda_cores.cu``); beside the plain
+  version and SDPA in float32.
+- The ordered segment sum (``segsum``) on google's push and pull orders:
+  the kernel (one launch, heavy and light block roles, 8 chunks in flight
+  a warp, each chunk passed through shared memory) against 2, 4 and 16
+  chunks in flight (``SS_RING``), the roles as two launches, each chunk
+  passed by shuffles (the first warp design), two passes (a gather into
+  edge-sorted order, then chains over contiguous memory) and one thread a
+  segment, the design before
+  (``kernel_variants_csrc/segment_sum_variants.cuh``).
+
 Every variant's output is held against the committed kernel's plain
-version first (K2, K3b and K4b bit for bit, K5 within
+version first (K2, K3b, K4b and the segment sum bit for bit, K5 within
 ``chip_smoke.ATTN_TOL``).  Prints the card's name and power limit, then one
 line per reading, and as the last line a JSON object of all readings.
 Needs one CUDA card.
@@ -456,13 +478,9 @@ K6_CUDA_CORE_EDITS = [
 def spliced(source: Path, name: str, cuh: str, edits) -> Path:
     """``source`` with each (old, new) of ``edits`` made once and the text
     of ``VARIANT_CSRC / cuh`` put before its ``launch`` template."""
-    text = source.read_text()
     anchor = "template <typename T, int P, int N>\nint launch("
-    for old, new in [*edits, (anchor, (VARIANT_CSRC / cuh).read_text() + "\n" + anchor)]:
-        if text.count(old) != 1:
-            raise SystemExit(f"{source.name}: {old!r} found {text.count(old)} times")
-        text = text.replace(old, new)
-    return rebuilt(source, name, text)
+    return edited(source, name,
+                  [*edits, (anchor, (VARIANT_CSRC / cuh).read_text() + "\n" + anchor)])
 
 
 def k6_variants(dev, readings):
@@ -876,8 +894,236 @@ def k1_variants(dev, readings):
             cs.log(f"  {name}: {ms:.3f} ms, {ms * 1e6 / longest:.1f} ns a step of the longest row")
 
 
+# K5's float32 route with each warp splitting its own fragments' K and V
+# from padded float32 tiles (kernel_variants_csrc/fa_f32_per_warp.cuh), no
+# split pass and no planes.
+K5_F32_PER_WARP_EDITS = [
+    ("static constexpr int BK = FA_F32_BK(HD), KST = HD, VST = HD;",
+     "static constexpr int BK = FA_F32_BK(HD), KST = HD + 8, VST = HD + 4;"),
+    ("static constexpr int PLANES = 2 * F32_PARTS * BK * HD * 2;",
+     "static constexpr int PLANES = 0;"),
+    ("    split_tiles<HD, KST, VST, BK>(kp, vp, ks, vs);\n", ""),
+    ("k_plane_parts<HD, BK>(kp, lane, kk, np, kb);", "k_parts<KST>(ks, lane, kk, np, kb);"),
+    ("v_plane_parts<HD, BK>(vp, lane, j, dp, vb);", "v_parts<VST>(vs, lane, j, dp, vb);"),
+    ("template <int HD>\nstruct F32Smem",
+     (VARIANT_CSRC / "fa_f32_per_warp.cuh").read_text() + "\ntemplate <int HD>\nstruct F32Smem"),
+]
+
+
+# K5's float32 route with S's six pair products summed into one pair of
+# accumulators, where the kernel keeps the five smaller pairs apart.
+ONE_ACC = "tensor cores, S's six pair products into one accumulator"
+K5_F32_ONE_ACC_EDITS = [
+    ("mma_parts_apart(s + 8 * np, s + 8 * np + 4, lo, lo + 4, qa, kb);",
+     "mma_parts(s + 8 * np, s + 8 * np + 4, qa, kb);"),
+]
+
+
+def edited(source: Path, name: str, edits) -> Path:
+    """``source`` with each (old, new) of ``edits`` made once."""
+    text = source.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{source.name}: {old!r} found {text.count(old)} times")
+        text = text.replace(old, new)
+    return rebuilt(source, name, text)
+
+
+def k5f32_variants(dev, readings):
+    """K5's float32 route: the tensor-core kernel (each float32 K / V tile
+    split once into bf16 planes, 32-key tiles) against 64-key tiles and
+    against each warp splitting its own fragments from the float32 tiles,
+    and two designs on the CUDA cores (register-blocked; scalar, the design
+    before), each held within ``chip_smoke.ATTN_TOL["float32"]`` on five
+    families first, then timed at the cross-check's shape (4, 512, 32, 64)
+    and at (4, 2048, 32, 64), causal; beside the plain version and SDPA in
+    float32.  The kernel with S's six pair products in one accumulator (the
+    summation order before) is timed too, its error against the tolerance
+    reported rather than held, on the families and on the CPU test's
+    cancelling family that the card's way of summing puts it outside."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import ptr, stream_ptr
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
+
+    src, inc = fa.SOURCE, '#include "flash_attn_step.h"'
+    bk64 = (inc, "#define FA_F32_BK(hd) ((hd) <= 64 ? 64 : 32)\n" + inc)  # 64-key tiles
+    cc = rebuilt(src, "cuda-cores", (VARIANT_CSRC / "fa_f32_cuda_cores.cu").read_text())
+    designs = {
+        "tensor cores, each tile split once into bf16 planes, 32-key tiles (the kernel)":
+            (src, "flash_attn_launch"),
+        "tensor cores, each tile split once into bf16 planes, 64-key tiles":
+            (edited(src, "f32-bk64", [bk64]), "flash_attn_launch"),
+        "tensor cores, each warp splits its fragments, 32-key tiles":
+            (edited(src, "f32-per-warp", K5_F32_PER_WARP_EDITS), "flash_attn_launch"),
+        ONE_ACC: (edited(src, "f32-one-acc", K5_F32_ONE_ACC_EDITS), "flash_attn_launch"),
+        "CUDA cores, register-blocked 4 x 4": (cc, "fa_f32_blocked_launch"),
+        "CUDA cores, scalar (the design before)": (cc, "fa_f32_scalar_launch"),
+    }
+    paths = list(dict.fromkeys(p for p, _ in designs.values()))
+    build.build(paths)
+    for p in paths:
+        for line in build.ptxas_report(p):
+            if "f32" in line or "spill" in line or "registers" in line:
+                cs.log(f"  [{p.parent.name}] {line}")
+    i64, ci = ctypes.c_int64, ctypes.c_int
+
+    def runner(path, entry, q, k, v, causal=True, win=0, qoff=0):
+        fn = getattr(build.load(path), entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [i64, i64, i64, ci, ci, ci, ci, ctypes.c_float,
+                                               ci, i64, i64, ctypes.c_void_p]
+        b, sq, h, hd = q.shape
+        out = torch.empty_like(q)
+
+        def run():
+            rc = fn(ptr(q), ptr(k), ptr(v), ptr(out), b, sq, k.shape[1], h, k.shape[2], hd, 0,
+                    hd**-0.5, int(causal), win, qoff, stream_ptr(dev))
+            if rc:
+                raise RuntimeError(f"CUDA error {rc}")
+            return out
+        return run
+
+    rng = np.random.default_rng(3)
+    families = [  # (name, b, sq, skv, h, kv, hd, causal, window, q_offset, cancelling)
+        ("causal GQA hd 64", 2, 256, 256, 4, 2, 64, True, 0, 0, False),
+        ("window 128 hd 128", 1, 300, 300, 2, 2, 128, True, 128, 0, False),
+        ("hd 32 GQA 4, non-causal", 2, 100, 100, 8, 2, 32, False, 0, 0, False),
+        ("GQA 4, q_offset 300 into 700 keys", 2, 400, 700, 8, 2, 64, True, 0, 300, False),
+        ("cancelling pairs, hd 128", 1, 300, 300, 2, 2, 128, True, 128, 0, True),
+    ]
+    tol = cs.ATTN_TOL["float32"]
+
+    def over_tolerance(got, ref):
+        """The largest |got - ref| / (atol + rtol |ref|): above 1 is outside."""
+        g, r = got.double(), ref.double()
+        return float(((g - r).abs() / (tol["atol"] + tol["rtol"] * r.abs())).max())
+
+    for name, b, sq, skv, h, kv, hd, causal, win, qoff, canc in families:
+        q, k, v = cs.k5_inputs(rng, b, sq, skv, h, kv, hd, torch.float32, dev, canc)
+        ref = blocked_attention_plain(q, k, v, causal, win, qoff)
+        for dname, (path, entry) in designs.items():
+            got = runner(path, entry, q, k, v, causal, win, qoff)()
+            if dname == ONE_ACC:  # reported, not held
+                readings[f"K5 float32 {dname}, {name}: error over tolerance"] = over_tolerance(
+                    got, ref)
+                continue
+            cs.close(got, ref, what=f"K5 float32 {dname}, {name}", **tol)
+    # tests/test_torch_flash_attn_f32tc.py's cancelling family (1, 300, 300,
+    # 4, 4, 64) causal, window 10, the same inputs (seed 12), where its CPU
+    # emulation of the tensor cores' sum puts S's six pairs in one
+    # accumulator just outside the tolerance
+    q, k, v = cs.k5_inputs(np.random.default_rng(12), 1, 300, 300, 4, 4, 64, torch.float32, dev,
+                           True)
+    ref = blocked_attention_plain(q, k, v, True, 10, 0)
+    for dname, (path, entry) in designs.items():
+        ratio = over_tolerance(runner(path, entry, q, k, v, True, 10, 0)(), ref)
+        readings[f"K5 float32 {dname}, the CPU test's cancelling window-10 family: error over "
+                 "tolerance"] = ratio
+        cs.log(f"  {dname}, the CPU test's cancelling window-10 family: error "
+               f"{ratio:.4f} of the tolerance")
+        cs.check(dname == ONE_ACC or ratio <= 1.0, f"K5 float32 {dname}: outside the tolerance")
+    cs.log(f"K5 float32: {len(designs)} designs within rtol 1e-4 atol 1e-5 on "
+           f"{len(families)} families")
+    for s in (512, 2048):
+        b, h, hd = 4, 32, 64
+        q, k, v = cs.k5_inputs(rng, b, s, s, h, h, hd, torch.float32, dev)
+        flop = 4 * hd * b * h * (s * (s + 1) // 2)
+        ref = blocked_attention_plain(q, k, v, True)
+        cs.log(f"K5 float32 at ({b}, {s}, {h}, {hd}), causal, {flop / 1e9:.2f} GFLOP")
+        for dname, (path, entry) in designs.items():
+            run = runner(path, entry, q, k, v)
+            if dname == ONE_ACC:
+                err = float((run().double() - ref.double()).abs().max())
+            else:
+                err = cs.close(run(), ref, what=f"K5 float32 {dname}", **tol)
+            ms = cs.cuda_ms(run, dev, reps=10)
+            readings[f"K5 float32 S {s}, {dname}"] = dict(ms=ms, max_abs_err=err)
+            cs.log(f"  {dname}: {ms:.4f} ms ({flop / ms * 1e-9:.1f} TFLOP/s), "
+                   f"max abs err {err:.3g}")
+        plain = cs.cuda_ms(lambda: blocked_attention_plain(q, k, v, True), dev, reps=3)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = cs.cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), dev, reps=10)
+        readings[f"K5 float32 S {s}, plain"] = plain
+        readings[f"K5 float32 S {s}, SDPA"] = lib
+        cs.log(f"  plain version: {plain:.4f} ms; SDPA in float32: {lib:.4f} ms")
+
+
+def segsum_variants(dev, readings):
+    """The ordered segment sum on google's push and pull edge orders (path
+    B's graph): the kernel (one launch, two block roles, 8 chunks in flight
+    a heavy warp, chunks passed through shared memory) against rings of 2,
+    4 and 16 chunks, the two roles as two launches, chunks passed by
+    shuffles (the first warp design), two passes (gather into edge-sorted
+    order, then chains over contiguous memory) and one thread a segment
+    (the design before), each held bit for bit against index_add_ on the
+    CPU first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs import make_dataset
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import ptr, stream_ptr
+    from repro_torch.kernels.segment_sum import segment_sum as seg
+
+    src, inc = seg.SOURCE, '#include "segment_sum_step.h"'
+    both = rebuilt(src, "variants", src.read_text()
+                   + (VARIANT_CSRC / "segment_sum_variants.cuh").read_text())
+    designs = {"one launch, two block roles, 8 chunks in flight (the kernel)":
+               (src, "segment_sum_launch")}
+    for r in (2, 4, 16):
+        designs[f"{r} chunks in flight"] = (
+            variant(src, f"ring{r}", inc, f"#define SS_RING {r}\n" + inc), "segment_sum_launch")
+    designs["the two roles as two launches"] = (both, "segment_sum_two_launches")
+    designs["chunks passed by shuffles, each perm load just before its values load"] = (
+        both, "segment_sum_shuffle_launch")
+    designs["two passes: gather, then chains over contiguous memory"] = (
+        both, "segment_sum_two_pass")
+    designs["one thread a segment (the design before)"] = (both, "segment_sum_thread_launch")
+    paths = list(dict.fromkeys(p for p, _ in designs.values()))
+    build.build(paths)
+    for p in paths:
+        for line in build.ptxas_report(p):
+            cs.log(f"  [{p.parent.name}] {line}")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    g = make_dataset("google")
+    for order, dst in (("push", g.neighbors), ("pull", g.transpose().edge_sources())):
+        plan = seg.segment_plan(dst, g.num_vertices, dev)
+        e, n = len(dst), g.num_vertices
+        vals = torch.rand(e, generator=torch.Generator().manual_seed(3)).to(dev)
+        ref = seg.segment_sum_plain(vals.cpu(), plan.ids.cpu(), n)
+        longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
+        cs.log(f"segment sum, google {order}: {e} edges into {n} segments, "
+               f"{plan.heavy.numel()} of more than 32 edges, the longest {longest}")
+        out = torch.empty(n, device=dev)
+        scratch = torch.empty(e, device=dev)
+        for name, (path, entry) in designs.items():
+            fn = getattr(build.load(path), entry)
+            two_pass = entry == "segment_sum_two_pass"
+            scratch_args = [vp, ctypes.c_int64] if two_pass else []
+            fn.argtypes = [vp] * 3 + [ci, vp, ci, vp] + scratch_args + [vp]
+
+            def run(fn=fn, two_pass=two_pass):
+                extra = (ptr(scratch), e) if two_pass else ()
+                rc = fn(ptr(vals), ptr(plan.perm), ptr(plan.offsets), n, ptr(plan.heavy),
+                        plan.heavy.numel(), ptr(out), *extra, stream_ptr(dev))
+                if rc:
+                    raise RuntimeError(f"CUDA error {rc}")
+
+            out.fill_(float("nan"))
+            run()
+            cs.check(cs.same_bits(out.cpu(), ref), f"segment sum {name}, {order}: != index_add_")
+            ms = cs.cuda_ms(run, dev, reps=50)
+            readings[f"segment sum {order}, {name}"] = ms
+            cs.log(f"  {name}: {ms:.4f} ms")
+
+
 VARIANTS = {"k5": k5_variants, "k4b": k4b_variants, "k2": k2_variants, "k3b": k3b_variants,
-            "k6": k6_variants, "k1": k1_variants}
+            "k6": k6_variants, "k1": k1_variants, "k5f32": k5f32_variants,
+            "segsum": segsum_variants}
 
 
 def main() -> int:
