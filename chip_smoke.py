@@ -78,10 +78,26 @@ Phases (any failure exits non-zero; each prints its seconds):
     K5's float32 (tensor-core) route at the cross-check's shape beside SDPA
     in float32, with its two bounds.
     K5 and K6 are also held against their plain versions in phase 2.
+13. ``repro_torch.core.Experiment`` on the card against the JAX package's
+    rows (``tests/data/torch_port_golden_grid.json``), every row and each
+    workload's iterations, accesses, ``eval_from_pos`` and hit-level sha256
+    exactly: G, the BENCH v9 grid (pgd, cc, bfs#s0-s2, bellmanford#s0-s2
+    and bfs_do#s0 on comdblp with ``amc`` and ``rnr``, 18 rows); G-fused
+    (pgd/comdblp with ``amc``, ``vldp``, ``rnr``) under
+    ``REPRO_TORCH_CACHE_ENGINE=fused`` and ``set_parallel``; G-quick (the
+    quickstart's cell); G-tableI (every registered prefetcher on
+    pgd/comdblp); H (bellmanford/google under ``PAPER``, the §VI pair,
+    scored on run 2); then G again through a ``WorkloadCache`` on the
+    ``ArtifactCache`` its first run filled, which must load all 9 workloads
+    and build none.  Each cell prints its stage seconds
+    (``collect_stages``), ``score``'s parts from its spans and the artifact
+    spans; H is also scored one prefetcher at a time with each step timed,
+    and run once more under ``torch.profiler`` for the device's busy share.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
 bfs_do, the gather demo, K3 on D's entries, E, the reduced LMs, F's
-prefill, serve loop and float32 cross-check) and read just after; each
+prefill, serve loop and float32 cross-check, and each cell of phase 13)
+and read just after; each
 kernel must have launched on the paths that run it, and the ``launches``
 of the kernels line are the sums over those paths.  Prints the card's
 name and power limit first, a ``{"kernels": ...}`` line, and as the last
@@ -103,6 +119,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 GOLDEN_EVOLVING = ROOT / "tests" / "data" / "torch_port_golden_evolving.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_port_golden_lm.json"
+GOLDEN_GRID = ROOT / "tests" / "data" / "torch_port_golden_grid.json"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak (NVIDIA data sheet)
 FADD_CYCLES = 4  # latency of a dependent float32 add on an SM (Hopper)
@@ -1721,6 +1738,182 @@ def path_f(dev, run_path, errs, totals):
     return time_lm_kernels(keep, dev, errs, totals)
 
 
+# ------------------------------------------------------------ phase 13
+def parse_workload(name: str):
+    """``"kernel/dataset#sSEED"`` -> (kernel, dataset, seed)."""
+    kd, seed = name.split("#s")
+    kernel, dataset = kd.split("/")
+    return kernel, dataset, int(seed)
+
+
+def score_breakdown(run_trace) -> dict:
+    """Seconds of ``score``'s parts from the spans of one traced run: the
+    prefetchers' streams (``score_cell`` children, by prefetcher), the K1
+    passes (``cache_pass[...]`` children: launch, device and the copy back)
+    and the rest (merging the streams, ``classify_prefetch_events``,
+    ``evaluate``: host numpy).  Where a family is scored one stream at a
+    time (one prefetcher, or an engine that does not batch) the streams are
+    not a child span and count in the rest."""
+    by_parent = {}
+    for sp in run_trace.spans:
+        by_parent.setdefault(sp.parent_id, []).append(sp)
+    out = dict(score=0.0, cache_passes=0.0, rest=0.0, streams={})
+    for sp in run_trace.by_name("score"):
+        out["score"] += sp.dur
+        inner = 0.0
+        for child in by_parent.get(sp.span_id, []):
+            inner += child.dur
+            if child.name == "score_cell":
+                name = child.attrs["prefetcher"]
+                out["streams"][name] = out["streams"].get(name, 0.0) + child.dur
+            elif child.name.startswith("cache_pass"):
+                out["cache_passes"] += child.dur
+        out["rest"] += sp.dur - inner
+    return out
+
+
+def experiment_cell(name: str, gold: dict, dev, cache=None):
+    """Run one golden cell through ``repro_torch.core.Experiment`` on
+    ``dev`` and hold every row and workload record against the JAX
+    package's; log its stage seconds, ``score``'s parts and the artifact
+    spans.  Returns the ``ExperimentResult``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import memsim
+    from repro_torch.core import Experiment, WorkloadSpec
+    from repro_torch.core.exec import collect_stages
+    from repro_torch.core.obs import trace
+
+    hierarchy = getattr(memsim, gold["hierarchy"])
+    specs = [WorkloadSpec(k, d, hierarchy=hierarchy, seed=s)
+             for k, d, s in map(parse_workload, gold["workloads"])]
+    t0 = time.perf_counter()
+    with collect_stages() as stages, trace() as tracer:
+        res = Experiment(workloads=specs, prefetchers=gold["prefetchers"], cache=cache,
+                         device=dev).run()
+    sync(dev)
+    secs = time.perf_counter() - t0
+    want_device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    check(res.telemetry["manifest"]["device"] == want_device,
+          f"{name}: the manifest names {res.telemetry['manifest']['device']}")
+    rows = jsonable(res.rows())
+    check(len(rows) == len(gold["rows"]), f"{name}: {len(rows)} rows, golden {len(gold['rows'])}")
+    for got, want in zip(rows, gold["rows"]):
+        check(all(np.isfinite(v) for v in got.values() if isinstance(v, float)),
+              f"{name}: non-finite metric in {got['kernel']}/{got['prefetcher']}")
+        if got != want:
+            diff = {k: (got.get(k), want.get(k)) for k in want if got.get(k) != want.get(k)}
+            raise SmokeError(f"{name}: row {want['kernel']}#s{want['seed']}/{want['prefetcher']} "
+                             f"differs from golden: {diff}")
+    for wname, want in gold["workload_records"].items():
+        w = res.workload(*parse_workload(wname))
+        check(w.device.type == dev.type, f"{name}: {wname} on {w.device}, expected {dev}")
+        got = dict(iterations=len(w.iter_epochs), accesses=w.num_accesses,
+                   eval_from_pos=int(w.eval_from_pos),
+                   levels_sha256=hashlib.sha256(demand_levels(w.profile).tobytes()).hexdigest())
+        check(got == want, f"{name}: {wname} {got} != golden {want}")
+    log(f"  {name}: {len(rows)} rows == golden ({', '.join(gold['prefetchers'])}; "
+        f"{len(specs)} workloads), {secs:.2f} s; workload cache "
+        + json.dumps(res.telemetry["workload_cache"]))
+    log("  stage seconds " + json.dumps({k: round(v, 4) for k, v in sorted(stages.items())}))
+    parts = score_breakdown(tracer.result)
+    log("  score's parts, seconds " + json.dumps(
+        {k: round(v, 4) if isinstance(v, float) else {p: round(t, 4) for p, t in v.items()}
+         for k, v in parts.items()}))
+    totals = tracer.result.stage_totals()
+    log("  span seconds " + json.dumps({k: round(totals[k], 4) for k in
+                                        ("build_workload", "artifact_save", "artifact_load")
+                                        if k in totals}))
+    return res
+
+
+def score_steps(w, gold_rows: dict) -> dict:
+    """Host-clock seconds of each step of scoring ``w`` one prefetcher at a
+    time, as ``score_prefetcher`` does (each step ends on the host): the
+    stream, the merge into the demand L2 substream, the K1 pass at L2 and at
+    the LLC, classify + unmerge (``_finish_prefetch_outcome``, of which
+    ``classify_prefetch_events`` is timed once more alone) and
+    ``evaluate``.  Each prefetcher's row must still equal the golden one."""
+    from repro_torch.core import get_prefetcher
+    from repro_torch.core.experiment import _composite_stream
+    from repro_torch.memsim import evaluate
+    from repro_torch.memsim.engine import cache_pass
+    from repro_torch.memsim.hierarchy import _finish_prefetch_outcome, _merge_prefetch_stream
+    from repro_torch.memsim.scan_cache import classify_prefetch_events
+
+    cfg, out = w.profile.cfg, {}
+    for name, want in gold_rows.items():
+        t = [time.perf_counter()]
+        stream = get_prefetcher(name).instantiate()(w)
+        t.append(time.perf_counter())
+        merged = _merge_prefetch_stream(w.profile, *_composite_stream(w, stream))
+        t.append(time.perf_counter())
+        hit = cache_pass(merged["mblocks_s"], cfg.l2.sets, cfg.l2.ways, device=w.device)
+        t.append(time.perf_counter())
+        llc_hit = cache_pass(merged["mblocks_s"][~hit], cfg.llc.sets, cfg.llc.ways,
+                             device=w.device)
+        t.append(time.perf_counter())
+        outcome = _finish_prefetch_outcome(w.profile, merged, hit, llc_hit,
+                                           stream.metadata_bytes, False)
+        t.append(time.perf_counter())
+        m = evaluate(name, w.profile, outcome, baseline_outcome=w.nl_outcome,
+                     eval_from_pos=w.eval_from_pos, issuer=1)
+        t.append(time.perf_counter())
+        classify_prefetch_events(merged["mblocks_s"], merged["m_is_pf_s"], merged["mpos_s"],
+                                 hit, 2 * cfg.pf_fill_window)
+        t.append(time.perf_counter())
+        m.info = stream.info
+        check(jsonable(m.row()) == {k: v for k, v in want.items()
+                                    if k not in ("kernel", "dataset", "prefetcher", "seed")},
+              f"{name}: scored step by step, its row differs from golden")
+        steps = ("stream", "merge", "k1_l2", "k1_llc", "finish", "evaluate", "classify_alone")
+        out[name] = {k: round(b - a, 4) for k, a, b in zip(steps, t, t[1:])}
+    return out
+
+
+def phase13(grid: dict, dev, run_path):
+    """Every cell of ``tests/data/torch_port_golden_grid.json`` through
+    ``Experiment`` on the card; then ``G`` again from the artifact cache
+    its first run filled."""
+    import os
+    import tempfile
+
+    from repro_torch.core import ArtifactCache, WorkloadCache
+
+    t0 = time.perf_counter()
+    graph = ("lru_hits", "fused_levels")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_") as tmp:
+        cold = WorkloadCache(artifacts=ArtifactCache(tmp))
+        run_path("G", graph + ("segment_sum",), lambda: experiment_cell("G", grid["G"], dev, cold))
+        check((cold.builds, cold.loads) == (9, 0), f"G cold: {cold.builds} builds, {cold.loads} loads")
+        for engine, expect in (("fused", graph + ("segment_sum",)),
+                               ("set_parallel", ("lru_hits", "segment_sum"))):
+            os.environ["REPRO_TORCH_CACHE_ENGINE"] = engine
+            try:
+                run_path(f"G-fused ({engine})", expect,
+                         lambda: experiment_cell(f"G-fused ({engine})", grid["G-fused"], dev),
+                         exact={"fused_levels": 0} if engine == "set_parallel" else None)
+            finally:
+                del os.environ["REPRO_TORCH_CACHE_ENGINE"]
+        for name in ("G-quick", "G-tableI"):
+            run_path(name, graph + ("segment_sum",), lambda: experiment_cell(name, grid[name], dev))
+        res_h = run_path("H", graph, lambda: experiment_cell("H", grid["H"], dev))
+        w_h = res_h.workload(*parse_workload(grid["H"]["workloads"][0]))
+        gold_h = {r["prefetcher"]: r for r in grid["H"]["rows"]}
+        log("  H scored one prefetcher at a time, step seconds "
+            + json.dumps(score_steps(w_h, gold_h)))
+        del res_h, w_h
+        profile_share("H again", lambda: experiment_cell("H", grid["H"], dev), dev)
+        warm = WorkloadCache(artifacts=ArtifactCache(tmp))
+        run_path("G warm", ("lru_hits",),
+                 lambda: experiment_cell("G (warm artifacts)", grid["G"], dev, warm),
+                 exact={"fused_levels": 0, "segment_sum": 0})
+        check((warm.loads, warm.builds) == (9, 0),
+              f"G warm: {warm.loads} loads, {warm.builds} builds, expected 9 and 0")
+    log(f"  phase 13 seconds {time.perf_counter() - t0:.1f}")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1768,7 +1961,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch").is_dir() or not all(
-            g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM)):
+            g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM, GOLDEN_GRID)):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 2
@@ -1929,6 +2122,11 @@ def main() -> int:
           f"{PATH_F_BATCH} x {PATH_F_PREFILL}, serve {PATH_F_BATCH} x {PATH_F_PROMPT} + "
           f"{PATH_F_GEN}, float32 cross-check, K5 and K6 times")
     kernels += path_f(dev, run_path, errs, totals)
+
+    phase("phase 13: Experiment on the card against the JAX package's grid rows: G (the BENCH "
+          "v9 grid), G-fused under the fused and set_parallel engines, G-quick, G-tableI, H "
+          "(bellmanford/google, PAPER); G again from a warm artifact cache")
+    phase13(json.loads(GOLDEN_GRID.read_text()), dev, run_path)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["name"] in route_totals:

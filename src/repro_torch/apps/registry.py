@@ -125,11 +125,12 @@ def _ensure_builtins_loaded() -> None:
     modules_before = set(sys.modules)
     try:
         # Each kernel module self-registers at import time (including the
-        # direction variants declared next to their base kernels).
-        # Ported so far: PageRankDelta and BFS; cc and bellmanford register
-        # here once their modules exist.
+        # direction variants declared next to their base kernels): the
+        # paper's four Ligra kernels, as in the JAX package.
         import repro_torch.apps.pagerank_delta  # noqa: F401
+        import repro_torch.apps.connected_components  # noqa: F401
         import repro_torch.apps.bfs  # noqa: F401
+        import repro_torch.apps.bellman_ford  # noqa: F401
     except BaseException:
         # Roll back this attempt's registrations and evict the modules it
         # imported, so a retry re-executes the decorators instead of dying

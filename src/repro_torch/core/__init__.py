@@ -1,14 +1,42 @@
-"""The paper's primary contribution, the AMC prefetcher system (PyTorch port).
+"""The paper's primary contribution, the AMC prefetcher system (PyTorch port
+of ``repro.core``).
 
-Public API ported so far:
+Public API
+----------
+  Experiment / ExperimentResult -- declarative (kernel x dataset x
+                  prefetcher) evaluation grid with workload caching, on
+                  the device the caller names (default the CUDA card)
   WorkloadSpec / build_workload -- declarative workload construction
                   (Algorithm-1 AMC session wiring included)
-  score_prefetcher / score_prefetchers_batched -- composite scoring
-  registry      -- ``@register_prefetcher`` + ``get_prefetcher`` /
-                  ``resolve_prefetchers`` (AMC, VLDP, Bingo so far)
+  registry      -- ``@register_prefetcher`` + ``get_prefetcher``: AMC and
+                  every baseline of the JAX package (the seven Table I
+                  baselines, ``nextline2``, ``ideal``) by name
+
+Subpackages:
+  amc          -- the Access-to-Miss Correlation prefetcher
+  prefetchers  -- the evaluated baselines
+  driver       -- the workload driver tying apps, traces, memsim and
+                  prefetchers together
+  experiment   -- the Experiment grid and per-stream scoring
+  exec         -- the content-addressed workload artifact cache and the
+                  stage timers
+  obs          -- spans, the metrics registry and run manifests
+
+Not yet ported (each raises ``NotImplementedError`` naming its item of
+ROADMAP queue 1): ``Experiment.run(workers >= 2)``, the scheduler and
+sharded specs (item 4), stream specs (item 5) and serve specs (item 6).
 """
 from repro_torch.core.driver import WorkloadSpec, WorkloadTrace, build_workload
-from repro_torch.core.experiment import score_prefetcher, score_prefetchers_batched
+from repro_torch.core.exec.artifacts import ArtifactCache
+from repro_torch.core.obs import MetricsRegistry, RunTrace, Span, Tracer, trace
+from repro_torch.core.experiment import (
+    CellResult,
+    Experiment,
+    ExperimentResult,
+    WorkloadCache,
+    score_prefetcher,
+    score_prefetchers_batched,
+)
 from repro_torch.core.registry import (
     Prefetcher,
     PrefetcherSpec,
@@ -19,15 +47,25 @@ from repro_torch.core.registry import (
 )
 
 __all__ = [
-    "Prefetcher",
-    "PrefetcherSpec",
+    "ArtifactCache",
+    "MetricsRegistry",
+    "RunTrace",
+    "Span",
+    "Tracer",
+    "trace",
     "WorkloadSpec",
     "WorkloadTrace",
     "build_workload",
+    "CellResult",
+    "Experiment",
+    "ExperimentResult",
+    "WorkloadCache",
+    "score_prefetcher",
+    "score_prefetchers_batched",
+    "Prefetcher",
+    "PrefetcherSpec",
     "get_prefetcher",
     "list_prefetchers",
     "register_prefetcher",
     "resolve_prefetchers",
-    "score_prefetcher",
-    "score_prefetchers_batched",
 ]

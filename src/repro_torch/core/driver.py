@@ -40,6 +40,8 @@ from repro_torch.apps.ligra import AppRun
 from repro_torch.apps.trace import T_ID, TraceConfig, trace_run
 from repro_torch.core.amc.api import AMCSession
 from repro_torch.core.amc.prefetcher import IterationView
+from repro_torch.core.exec.timers import stage
+from repro_torch.core.obs import spans as obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import DATASETS, make_dataset, make_evolving_pair
 from repro_torch.memsim import (
@@ -51,6 +53,16 @@ from repro_torch.memsim import (
 )
 from repro_torch.memsim.config import BLOCK_BITS
 from repro_torch.memsim.hierarchy import PrefetchOutcome
+
+# Version of the trace-construction pipeline below (app protocol, address
+# layout, demand/next-line simulation).  The workload artifact cache
+# (repro_torch.core.exec.artifacts) folds this into its content hash, so
+# bump it whenever a change to this module (or to apps/graphs/memsim code
+# it calls) alters the built WorkloadTrace — every persisted artifact then
+# reads as a miss and is rebuilt instead of serving stale data.  It
+# starts at the JAX package's value (repro.core.driver.TRACE_CODE_VERSION).
+TRACE_CODE_VERSION = 2
+
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
@@ -99,7 +111,13 @@ class WorkloadSpec:
     ) -> "WorkloadTrace":
         if runs is None:
             self.validate_names()
-        return _build_workload(self, runs, device=device)
+        with obs.span(
+            "build_workload",
+            kernel=self.kernel,
+            dataset=self.dataset,
+            seed=self.seed,
+        ):
+            return _build_workload(self, runs, device=device)
 
 
 @dataclasses.dataclass
@@ -307,59 +325,62 @@ def _build_workload(
     # per-iteration traits; registered kernels dispatch on their spec.
     ks = kernel_traits(kernel)
     t0 = time.perf_counter()
-    runs = runs if runs is not None else _run_app(kernel, dataset, spec.seed, dev)
-    t_app = time.perf_counter()
-    if cfg_trace is None:
-        # Shared layout across runs (same id space - evolve.py keeps it).
-        g = runs[0].graph
-        cfg_trace = TraceConfig(
-            num_vertices=g.num_vertices,
-            num_edges=max(r.graph.num_edges for r in runs),
-        )
-
-    run_traces = []
-    iter_epochs: List[Tuple[int, int]] = []
-    git = 0
-    run_start_iter = []
-    for run_idx, run in enumerate(runs):
-        rt = trace_run(run, cfg_trace)
-        run_start_iter.append(git)
-        for k in range(rt.num_iters):
-            if epoch_mode == "single":
-                iter_epochs.append((0, git))
-            elif ks.two_run:
-                iter_epochs.append((run_idx, k))
-            else:
-                iter_epochs.append((git, 0))
-            git += 1
-        run_traces.append(rt)
-
-    if len(run_traces) == 1:  # single-run kernels: no concat copy
-        rt = run_traces[0]
-        block, array_id, elem = rt.block, rt.array_id, rt.elem
-    else:
-        block = np.concatenate([rt.block for rt in run_traces])
-        array_id = np.concatenate([rt.array_id for rt in run_traces])
-        elem = np.concatenate([rt.elem for rt in run_traces])
-    iter_id = np.concatenate(
-        [
-            np.repeat(
-                np.arange(s, s + rt.num_iters, dtype=np.int32),
-                rt.iter_sizes,
+    with stage("trace_gen"):
+        runs = runs if runs is not None else _run_app(kernel, dataset, spec.seed, dev)
+        t_app = time.perf_counter()
+        if cfg_trace is None:
+            # Shared layout across runs (same id space - evolve.py keeps it).
+            g = runs[0].graph
+            cfg_trace = TraceConfig(
+                num_vertices=g.num_vertices,
+                num_edges=max(r.graph.num_edges for r in runs),
             )
-            for s, rt in zip(run_start_iter, run_traces)
-        ]
-    )
-    epoch_id = np.asarray(
-        [iter_epochs[i][0] for i in range(git)], dtype=np.int32
-    )[iter_id]
+
+        with stage("trace_emit"):
+            run_traces = []
+            iter_epochs: List[Tuple[int, int]] = []
+            git = 0
+            run_start_iter = []
+            for run_idx, run in enumerate(runs):
+                rt = trace_run(run, cfg_trace)
+                run_start_iter.append(git)
+                for k in range(rt.num_iters):
+                    if epoch_mode == "single":
+                        iter_epochs.append((0, git))
+                    elif ks.two_run:
+                        iter_epochs.append((run_idx, k))
+                    else:
+                        iter_epochs.append((git, 0))
+                    git += 1
+                run_traces.append(rt)
+
+            if len(run_traces) == 1:  # single-run kernels: no concat copy
+                rt = run_traces[0]
+                block, array_id, elem = rt.block, rt.array_id, rt.elem
+            else:
+                block = np.concatenate([rt.block for rt in run_traces])
+                array_id = np.concatenate([rt.array_id for rt in run_traces])
+                elem = np.concatenate([rt.elem for rt in run_traces])
+            iter_id = np.concatenate(
+                [
+                    np.repeat(
+                        np.arange(s, s + rt.num_iters, dtype=np.int32),
+                        rt.iter_sizes,
+                    )
+                    for s, rt in zip(run_start_iter, run_traces)
+                ]
+            )
+            epoch_id = np.asarray(
+                [iter_epochs[i][0] for i in range(git)], dtype=np.int32
+            )[iter_id]
     t_trace = time.perf_counter()
 
-    profile = simulate_demand(block, iter_id, hierarchy, device=dev)
-    nl_blocks, nl_pos = _nextline_stream(profile)
-    nl_outcome = simulate_with_prefetch(
-        profile, nl_blocks, nl_pos, pf_issuer=np.zeros(len(nl_blocks), np.int8)
-    )
+    with stage("demand_sim"):
+        profile = simulate_demand(block, iter_id, hierarchy, device=dev)
+        nl_blocks, nl_pos = _nextline_stream(profile)
+        nl_outcome = simulate_with_prefetch(
+            profile, nl_blocks, nl_pos, pf_issuer=np.zeros(len(nl_blocks), np.int8)
+        )
     t_sim = time.perf_counter()
 
     eval_from = 0

@@ -1,27 +1,65 @@
-"""Per-stream scoring of prefetchers against a workload (PyTorch port of
-``repro.core.experiment``'s :func:`score_prefetcher` and
-:func:`score_prefetchers_batched`).
+"""Declarative experiment API: one call evaluates a (kernel x dataset x
+prefetcher) grid (PyTorch port of ``repro.core.experiment``).
 
-Scoring runs the composite (next-line + X) configuration: the prefetcher's
-stream is merged into the demand L2 substream, L2 and LLC are re-simulated
-on the workload's device, and :func:`~repro_torch.memsim.metrics.evaluate`
-scores issuer X against the baseline run.  The ``Experiment`` grid builder,
-its workload cache and scheduler come with the ``exec`` slice.
+Declare *what* to evaluate —
+
+    result = Experiment(
+        kernels=["cc", "bellmanford"],
+        datasets=["comdblp"],
+        prefetchers=["amc", "rnr"],
+    ).run()
+    result.metrics(kernel="cc", dataset="comdblp", prefetcher="amc").speedup
+
+— and ``Experiment`` owns the *how*: workload construction through
+:class:`~repro_torch.core.driver.WorkloadSpec` on the device the caller
+names (``device=``, default the CUDA card), a :class:`WorkloadCache` so
+each trace is built once and scored by every prefetcher (optionally backed
+by the on-disk :class:`~repro_torch.core.exec.artifacts.ArtifactCache`),
+registry resolution of prefetcher names, and composite (next-line + X)
+scoring of every grid cell.  :class:`ExperimentResult` returns the tidy
+per-cell rows, which equal the JAX package's row for row.
+
+Scoring one stream is :func:`score_prefetcher`: the prefetcher's stream is
+merged into the demand L2 substream, L2 and LLC are re-simulated on the
+workload's device, and :func:`~repro_torch.memsim.metrics.evaluate` scores
+issuer X against the baseline run.
+
+Ported: the serial path.  Not yet ported, each raising
+``NotImplementedError`` that names its ROADMAP queue 1 item: ``run(workers
+>= 2)`` and sharded specs (the scheduler and the sharded trace store, item
+4), stream specs (item 5) and serve specs (item 6).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+import json
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.driver import WorkloadTrace
-from repro_torch.core.registry import Prefetcher
+from repro_torch.core.driver import WorkloadSpec, WorkloadTrace, make_session
+from repro_torch.core.exec.artifacts import ArtifactCache
+from repro_torch.core.exec.timers import stage
+from repro_torch.core.obs import spans as obs
+from repro_torch.core.registry import Prefetcher, resolve_prefetchers
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.memsim import (
+    SCALED,
+    HierarchyConfig,
     PrefetchMetrics,
     current_engine,
     evaluate,
     simulate_with_prefetch,
     simulate_with_prefetch_batch,
+)
+
+# What the serial path does not run yet, by the ROADMAP item that ports it.
+_SCHEDULER_ITEM = "the process-pool scheduler (ROADMAP queue 1 item 4)"
+_NOT_PORTED = (
+    ("is_sharded", "sharded specs", "the sharded trace store (ROADMAP queue 1 item 4)"),
+    ("is_stream", "stream specs", "the stream protocol (ROADMAP queue 1 item 5)"),
+    ("is_serve", "serve specs", "the serving protocol (ROADMAP queue 1 item 6)"),
 )
 
 
@@ -55,16 +93,22 @@ def score_prefetcher(
     workload: WorkloadTrace, name: str, generate: Prefetcher
 ) -> PrefetchMetrics:
     """Score one prefetcher in the composite (next-line + X) configuration."""
-    stream = generate(workload)
-    blocks, pos, issuer = _composite_stream(workload, stream)
-    outcome = simulate_with_prefetch(
-        workload.profile,
-        blocks,
-        pos,
-        pf_issuer=issuer,
-        metadata_bytes=stream.metadata_bytes,
-    )
-    return _metrics(workload, name, outcome, stream.info)
+    with obs.span(
+        "score_cell",
+        prefetcher=name,
+        kernel=workload.spec.kernel,
+        dataset=workload.spec.dataset,
+    ), stage("score"):
+        stream = generate(workload)
+        blocks, pos, issuer = _composite_stream(workload, stream)
+        outcome = simulate_with_prefetch(
+            workload.profile,
+            blocks,
+            pos,
+            pf_issuer=issuer,
+            metadata_bytes=stream.metadata_bytes,
+        )
+        return _metrics(workload, name, outcome, stream.info)
 
 
 def score_prefetchers_batched(
@@ -79,16 +123,375 @@ def score_prefetchers_batched(
     """
     if len(pairs) <= 1 or current_engine() != "fused":
         return [score_prefetcher(workload, n, g) for n, g in pairs]
-    streams = [gen(workload) for _, gen in pairs]
-    outcomes = simulate_with_prefetch_batch(
-        workload.profile,
-        [_composite_stream(workload, s) for s in streams],
-        [s.metadata_bytes for s in streams],
+    with obs.span(
+        "score_batch",
+        prefetchers=",".join(n for n, _ in pairs),
+        kernel=workload.spec.kernel,
+        dataset=workload.spec.dataset,
+    ), stage("score"):
+        streams = []
+        for name, gen in pairs:
+            # Per-cell child span over the prefetcher's own compute (its
+            # stream); the joint simulation stays on the batch span.
+            with obs.span(
+                "score_cell",
+                prefetcher=name,
+                kernel=workload.spec.kernel,
+                dataset=workload.spec.dataset,
+                batched=True,
+            ):
+                streams.append(gen(workload))
+        outcomes = simulate_with_prefetch_batch(
+            workload.profile,
+            [_composite_stream(workload, s) for s in streams],
+            [s.metadata_bytes for s in streams],
+        )
+        return [
+            _metrics(workload, name, outcome, s.info)
+            for (name, _), outcome, s in zip(pairs, outcomes, streams)
+        ]
+
+
+def _retarget_trace(trace: WorkloadTrace, spec) -> WorkloadTrace:
+    """A content-identical trace re-bound to ``spec``: the arrays are
+    shared, the spec and its AMC session fresh, exactly as
+    :func:`repro_torch.core.exec.artifacts._unpack` rebinds a loaded
+    artifact — so scoring a reused trace equals scoring a re-emission."""
+    return dataclasses.replace(
+        trace, spec=spec, session=make_session(spec, trace.cfg_trace)
     )
-    return [
-        _metrics(workload, name, outcome, s.info)
-        for (name, _), outcome, s in zip(pairs, outcomes, streams)
-    ]
 
 
-__all__ = ["score_prefetcher", "score_prefetchers_batched"]
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+class WorkloadCache:
+    """Build-once cache of :class:`WorkloadTrace` keyed by ``WorkloadSpec``.
+
+    Each workload in an :class:`Experiment` is built once and scored by
+    every prefetcher; pass the same cache instance to several experiments
+    to reuse builds across them too (on one device: a trace asked for on
+    another device than it was built on raises).
+
+    ``artifacts`` optionally backs the in-memory store with the on-disk
+    :class:`~repro_torch.core.exec.artifacts.ArtifactCache`: misses consult
+    the artifact store before building, and fresh builds are persisted
+    there.  Content-keyed specs (those exposing ``content_key()``) also
+    deduplicate within the in-memory store: distinct specs whose traces
+    are determined by identical content share one build, retargeted per
+    spec (``reuses`` counts these alias hits).
+    """
+
+    def __init__(self, artifacts: Optional[ArtifactCache] = None):
+        self._store: Dict[WorkloadSpec, WorkloadTrace] = {}
+        self._by_content: Dict[str, WorkloadTrace] = {}
+        self.artifacts = artifacts
+        self.builds = 0
+        self.hits = 0
+        self.loads = 0  # artifact-cache (disk) hits
+        self.reuses = 0  # in-memory content-alias hits (distinct specs)
+
+    def get_or_build(self, spec: WorkloadSpec, device: DeviceLike = None) -> WorkloadTrace:
+        """The trace of ``spec`` with its profile on ``device`` (default
+        the CUDA card): from memory, else the artifact store, else built."""
+        dev = resolve_device(device)
+        if spec in self._store:
+            trace = self._store[spec]
+            if not _same_device(trace.device, dev):
+                raise ValueError(
+                    f"{spec.kernel}/{spec.dataset}#s{spec.seed} is cached on "
+                    f"{trace.device}, asked for on {dev}: use a cache per device"
+                )
+            self.hits += 1
+            obs.inc("workload_cache.hits")
+            return trace
+        content = getattr(spec, "content_key", None)
+        ck = (
+            json.dumps(content(), sort_keys=True) if callable(content) else None
+        )
+        with obs.span(
+            "get_or_build", kernel=spec.kernel, dataset=spec.dataset
+        ) as sp:
+            trace = (
+                self.artifacts.load(spec, device=dev)
+                if self.artifacts is not None
+                else None
+            )
+            if trace is not None:
+                self.loads += 1
+                obs.inc("workload_cache.loads")
+                if sp:
+                    sp.attrs["cache"] = "load"
+            elif ck is not None and ck in self._by_content:
+                trace = _retarget_trace(self._by_content[ck], spec)
+                self.reuses += 1
+                obs.inc("workload_cache.reuses")
+                if sp:
+                    sp.attrs["cache"] = "reuse"
+            if trace is None:
+                self.builds += 1
+                obs.inc("workload_cache.builds")
+                if sp:
+                    sp.attrs["cache"] = "build"
+                trace = spec.build(device=dev)
+                if self.artifacts is not None:
+                    self.artifacts.save(spec, trace)
+            if ck is not None:
+                self._by_content.setdefault(ck, trace)
+            self._store[spec] = trace
+            return trace
+
+    def evict(self, spec: WorkloadSpec) -> None:
+        """Drop the in-memory entry (the artifact, if any, stays on disk),
+        so long sweeps can bound peak memory at one trace."""
+        self._store.pop(spec, None)
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+
+@dataclasses.dataclass(frozen=True)
+class CellResult:
+    """One grid cell: a prefetcher scored on one workload.  (The JAX
+    package's stream and serving cells add epoch and tenant fields; they
+    come with those protocols, ROADMAP queue 1 items 5 and 6.)"""
+
+    kernel: str
+    dataset: str
+    prefetcher: str
+    seed: int
+    metrics: PrefetchMetrics
+    spec: Optional[WorkloadSpec] = None  # full workload identity
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    """Structured result over the full evaluation grid.
+
+    ``workloads`` is keyed by the full :class:`WorkloadSpec` (specs
+    differing only in hierarchy or element sizes stay distinct); filter
+    cells by ``spec=`` when kernel/dataset/seed alone are ambiguous.
+    """
+
+    cells: List[CellResult]
+    workloads: Dict[WorkloadSpec, WorkloadTrace]
+    # The scheduler's decision; None on the serial path, the only one
+    # ported (the cost model is ROADMAP queue 1 item 4).
+    sched: Optional[dict] = None
+    # Run telemetry: the run manifest (git sha, engine, emitter, schema
+    # versions, torch version, device name), workload-cache counters, and
+    # — when a tracer was active — the trace id.
+    telemetry: Optional[dict] = None
+
+    def select(self, **filters) -> List[CellResult]:
+        """Cells matching all given kernel/dataset/prefetcher/seed filters."""
+        out = self.cells
+        for field, want in filters.items():
+            out = [c for c in out if getattr(c, field) == want]
+        return out
+
+    def metrics(self, **filters) -> PrefetchMetrics:
+        """The unique cell's metrics matching the filters (error otherwise)."""
+        hits = self.select(**filters)
+        if len(hits) != 1:
+            raise KeyError(
+                f"filters {filters} matched {len(hits)} cells, expected 1"
+            )
+        return hits[0].metrics
+
+    def suite(self, kernel: str, dataset: str, seed: int = 0) -> Dict[str, PrefetchMetrics]:
+        """``{prefetcher: metrics}`` view of one workload cell."""
+        cells = self.select(kernel=kernel, dataset=dataset, seed=seed)
+        if not cells:
+            raise KeyError(
+                f"({kernel}, {dataset}, seed={seed}) matched no cells; "
+                f"workloads run: {sorted(set((c.kernel, c.dataset, c.seed) for c in self.cells))}"
+            )
+        out: Dict[str, PrefetchMetrics] = {}
+        for c in cells:
+            if c.prefetcher in out:
+                raise KeyError(
+                    f"({kernel}, {dataset}, seed={seed}) matched multiple "
+                    "workload specs; use select(spec=...) to disambiguate"
+                )
+            out[c.prefetcher] = c.metrics
+        return out
+
+    def rows(self) -> List[dict]:
+        """Tidy per-cell rows: grid coordinates + flattened metrics (the
+        JAX package's schema for plain cells)."""
+        return [
+            dict(
+                kernel=c.kernel,
+                dataset=c.dataset,
+                prefetcher=c.prefetcher,
+                seed=c.seed,
+                **c.metrics.row(),
+            )
+            for c in self.cells
+        ]
+
+    def workload(self, kernel: str, dataset: str, seed: int = 0) -> WorkloadTrace:
+        """The unique built trace for (kernel, dataset, seed); with several
+        specs sharing those coordinates, index ``workloads`` by spec."""
+        hits = [
+            s
+            for s in self.workloads
+            if (s.kernel, s.dataset, s.seed) == (kernel, dataset, seed)
+        ]
+        if len(hits) != 1:
+            raise KeyError(
+                f"({kernel}, {dataset}, seed={seed}) matched {len(hits)} "
+                "workloads; index result.workloads by WorkloadSpec instead"
+            )
+        return self.workloads[hits[0]]
+
+
+class Experiment:
+    """Declarative prefetcher-evaluation grid.
+
+    Either give ``kernels`` + ``datasets`` (the cross product is taken, once
+    per seed) or pass explicit ``workloads=[WorkloadSpec(...), ...]``.
+    ``prefetchers`` accepts registry names, :class:`PrefetcherSpec` objects,
+    ``(name, generator)`` pairs, or a mapping — see
+    :func:`repro_torch.core.registry.resolve_prefetchers`.  Every workload
+    is built, and scored, on ``device`` (default the CUDA card; a run with
+    no card raises).  Sharded, stream and serve specs raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    """
+
+    def __init__(
+        self,
+        kernels: Optional[Sequence[str]] = None,
+        datasets: Optional[Sequence[str]] = None,
+        prefetchers: Iterable = ("amc",),
+        hierarchy: HierarchyConfig = SCALED,
+        seeds: Sequence[int] = (0,),
+        workloads: Optional[Sequence[WorkloadSpec]] = None,
+        cache: Optional[WorkloadCache] = None,
+        device: DeviceLike = None,
+    ):
+        if workloads is not None:
+            if kernels is not None or datasets is not None:
+                raise ValueError("pass either workloads= or kernels=+datasets=")
+            if hierarchy is not SCALED or tuple(seeds) != (0,):
+                raise ValueError(
+                    "hierarchy=/seeds= apply to the kernels=+datasets= grid; "
+                    "with workloads=, declare them on each WorkloadSpec"
+                )
+            for w in workloads:
+                for flag, what, port in _NOT_PORTED:
+                    if getattr(w, flag, False):
+                        raise NotImplementedError(
+                            f"{what} are not ported yet: they need {port}"
+                        )
+            self.workload_specs = list(workloads)
+        else:
+            if not kernels or not datasets:
+                raise ValueError("kernels= and datasets= must both be non-empty")
+            self.workload_specs = [
+                WorkloadSpec(kernel=k, dataset=d, hierarchy=hierarchy, seed=s)
+                for k in kernels
+                for d in datasets
+                for s in seeds
+            ]
+        # Fail fast on typo'd names at declaration time, not first build.
+        for spec in self.workload_specs:
+            spec.validate_names()
+        self.prefetchers: List[Tuple[str, Prefetcher]] = resolve_prefetchers(
+            prefetchers
+        )
+        self.cache = cache if cache is not None else WorkloadCache()
+        self.device = resolve_device(device)
+
+    @property
+    def prefetcher_names(self) -> List[str]:
+        return [name for name, _ in self.prefetchers]
+
+    @property
+    def grid(self) -> List[Tuple[WorkloadSpec, str]]:
+        """The full (workload, prefetcher) evaluation grid, in run order."""
+        return [
+            (spec, name)
+            for spec in self.workload_specs
+            for name in self.prefetcher_names
+        ]
+
+    def run(self, verbose: bool = False, workers: Optional[int] = None) -> ExperimentResult:
+        """Build every workload (cached) and score every grid cell.
+
+        Runs the serial path, in-process on ``device``: ``workers=None``
+        and ``workers=1`` alike, and ``result.sched`` stays ``None`` (the
+        JAX package's ``workers=None`` consults the scheduler's cost model,
+        which is not ported).  ``workers >= 2`` needs the process-pool
+        scheduler and raises ``NotImplementedError`` (ROADMAP queue 1
+        item 4).  Cell order and every metric equal the JAX package's.
+        """
+        if workers is not None and workers > 1:
+            raise NotImplementedError(
+                f"Experiment.run(workers={workers}) needs {_SCHEDULER_ITEM}, "
+                "which is not ported yet; run with workers=None or 1"
+            )
+        with obs.span(
+            "experiment_run",
+            workloads=len(self.workload_specs),
+            prefetchers=self.prefetcher_names,
+        ):
+            result = self._run_impl(verbose)
+        result.telemetry = self._telemetry(result.sched)
+        return result
+
+    def _run_impl(self, verbose: bool) -> ExperimentResult:
+        cells: List[CellResult] = []
+        traces: Dict[WorkloadSpec, WorkloadTrace] = {}
+        for spec in self.workload_specs:
+            w = self.cache.get_or_build(spec, device=self.device)
+            traces[spec] = w
+            metrics = score_prefetchers_batched(w, self.prefetchers)
+            for name, m in zip(self.prefetcher_names, metrics):
+                cells.append(
+                    CellResult(
+                        kernel=spec.kernel,
+                        dataset=spec.dataset,
+                        prefetcher=name,
+                        seed=spec.seed,
+                        metrics=m,
+                        spec=spec,
+                    )
+                )
+                if verbose:
+                    print(
+                        f"[{spec.kernel}/{spec.dataset}] {name}: "
+                        f"speedup {m.speedup:.2f} coverage {m.coverage:.2f} "
+                        f"accuracy {m.accuracy:.2f}"
+                    )
+        return ExperimentResult(cells=cells, workloads=traces)
+
+    def _telemetry(self, sched: Optional[dict]) -> dict:
+        """Provenance + counters block for ``ExperimentResult.telemetry``."""
+        from repro_torch.core.obs.manifest import run_manifest
+
+        doc = {
+            "manifest": run_manifest(sched=sched, device=self.device),
+            "workload_cache": {
+                "hits": self.cache.hits,
+                "builds": self.cache.builds,
+                "loads": self.cache.loads,
+                "reuses": self.cache.reuses,
+            },
+        }
+        tracer = obs.current_tracer()
+        if tracer is not None:
+            doc["trace_id"] = tracer.trace_id
+        return doc
+
+
+__all__ = [
+    "CellResult",
+    "Experiment",
+    "ExperimentResult",
+    "WorkloadCache",
+    "score_prefetcher",
+    "score_prefetchers_batched",
+]

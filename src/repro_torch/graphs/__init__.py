@@ -1,6 +1,6 @@
-"""Graph substrate: CSR graphs, the seeded synthetic generators and the
-§VI evolving pair (ported from ``repro.graphs``; partitioning comes with
-the sharded execution engine)."""
+"""Graph substrate: CSR graphs, the seeded synthetic generators, the
+§VI evolving pair and the METIS stand-in partitioner (ported from
+``repro.graphs``)."""
 from repro_torch.graphs.csr import CSRGraph, build_csr, from_edges
 from repro_torch.graphs.evolve import EvolvingGraphPair, make_evolving_pair
 from repro_torch.graphs.generators import (
@@ -10,6 +10,7 @@ from repro_torch.graphs.generators import (
     rmat_graph,
     road_graph,
 )
+from repro_torch.graphs.partition import bfs_reorder, partition_contiguous
 
 __all__ = [
     "CSRGraph",
@@ -22,4 +23,6 @@ __all__ = [
     "make_dataset",
     "make_evolving_pair",
     "DATASETS",
+    "partition_contiguous",
+    "bfs_reorder",
 ]

@@ -33,6 +33,31 @@ from repro_torch.memsim.fused import fused_cache_pass, fused_cache_pass_batch
 from repro_torch.memsim.scan_cache import classify_prefetch_events
 
 
+def _stage(name: str):
+    """Per-level stage-timer hook (``cache_pass[l1|l2|llc|fused]``).
+
+    Imported lazily: :mod:`repro_torch.core.exec.timers` is
+    dependency-free, but reaching it imports the ``repro_torch.core``
+    package, which imports this module back — fine at call time, a cycle
+    at import time.  Every pass returns its hit masks on the host, so the
+    stage's clock covers the device work.
+    """
+    from repro_torch.core.exec.timers import stage
+
+    return stage(name)
+
+
+def _count_launch(batched: int = 0) -> None:
+    """Metrics counters for fused-engine dispatches (no-op when obs is
+    off): ``fused.launches`` counts launches, ``fused.batched_streams`` the
+    streams a batched launch covered."""
+    from repro_torch.core.obs.spans import inc
+
+    inc("fused.launches")
+    if batched:
+        inc("fused.batched_streams", batched)
+
+
 def _demand_levels(cfg: HierarchyConfig):
     return (
         (cfg.l1.sets, cfg.l1.ways),
@@ -134,40 +159,43 @@ def simulate_demand(
         offset = state.pos_offset
     if current_engine() == "fused":
         return _simulate_demand_fused(blocks, iter_id, cfg, state, return_state, dev)
-    l1_hit = cache_pass(
-        blocks,
-        cfg.l1.sets,
-        cfg.l1.ways,
-        state=state.l1 if state is not None else None,
-        return_state=return_state,
-        device=dev,
-    )
-    if return_state:
-        l1_hit, l1_state = l1_hit
+    with _stage("cache_pass[l1]"):
+        l1_hit = cache_pass(
+            blocks,
+            cfg.l1.sets,
+            cfg.l1.ways,
+            state=state.l1 if state is not None else None,
+            return_state=return_state,
+            device=dev,
+        )
+        if return_state:
+            l1_hit, l1_state = l1_hit
     l2_pos = np.flatnonzero(~l1_hit).astype(np.int64) + offset
     l2_blocks = blocks[l2_pos - offset]
     l2_iter = iter_id[l2_pos - offset]
-    l2_hit = cache_pass(
-        l2_blocks,
-        cfg.l2.sets,
-        cfg.l2.ways,
-        state=state.l2 if state is not None else None,
-        return_state=return_state,
-        device=dev,
-    )
-    if return_state:
-        l2_hit, l2_state = l2_hit
+    with _stage("cache_pass[l2]"):
+        l2_hit = cache_pass(
+            l2_blocks,
+            cfg.l2.sets,
+            cfg.l2.ways,
+            state=state.l2 if state is not None else None,
+            return_state=return_state,
+            device=dev,
+        )
+        if return_state:
+            l2_hit, l2_state = l2_hit
     llc_in = l2_blocks[~l2_hit]
-    llc_hit = cache_pass(
-        llc_in,
-        cfg.llc.sets,
-        cfg.llc.ways,
-        state=state.llc if state is not None else None,
-        return_state=return_state,
-        device=dev,
-    )
-    if return_state:
-        llc_hit, llc_state = llc_hit
+    with _stage("cache_pass[llc]"):
+        llc_hit = cache_pass(
+            llc_in,
+            cfg.llc.sets,
+            cfg.llc.ways,
+            state=state.llc if state is not None else None,
+            return_state=return_state,
+            device=dev,
+        )
+        if return_state:
+            llc_hit, llc_state = llc_hit
     profile = DemandProfile(
         blocks=blocks,
         iter_id=iter_id,
@@ -231,10 +259,12 @@ def _simulate_demand_fused(
     path)."""
     offset = state.pos_offset if state is not None else 0
     states = [state.l1, state.l2, state.llc] if state is not None else None
-    res = fused_cache_pass(
-        blocks, _demand_levels(cfg), states, return_states=return_state,
-        device=device,
-    )
+    with _stage("cache_pass[fused]"):
+        res = fused_cache_pass(
+            blocks, _demand_levels(cfg), states, return_states=return_state,
+            device=device,
+        )
+        _count_launch()
     lvl = res[0] if return_state else res
     profile = _profile_from_levels(blocks, iter_id, cfg, lvl, offset, device)
     if not return_state:
@@ -260,9 +290,11 @@ def simulate_demand_batch(
     dev = resolve_device(device)
     if current_engine() != "fused":
         return [simulate_demand(b, it, cfg, device=dev) for b, it in items]
-    lvls = fused_cache_pass_batch(
-        [b for b, _ in items], _demand_levels(cfg), device=dev
-    )
+    with _stage("cache_pass[fused]"):
+        lvls = fused_cache_pass_batch(
+            [b for b, _ in items], _demand_levels(cfg), device=dev
+        )
+        _count_launch(batched=len(items))
     return [
         _profile_from_levels(b, it, cfg, lvl, 0, dev)
         for (b, it), lvl in zip(items, lvls)
@@ -350,11 +382,13 @@ def simulate_with_prefetch(
     # engine (the L2 substream has no L1-filterable runs to collapse); the
     # fused engine's scoring win is batching, see
     # simulate_with_prefetch_batch.
-    hit = cache_pass(mblocks_s, cfg.l2.sets, cfg.l2.ways, device=profile.device)
+    with _stage("cache_pass[l2]"):
+        hit = cache_pass(mblocks_s, cfg.l2.sets, cfg.l2.ways, device=profile.device)
     # LLC sees every L2 miss (demand or prefetch) in order.
-    llc_hit = cache_pass(
-        mblocks_s[~hit], cfg.llc.sets, cfg.llc.ways, device=profile.device
-    )
+    with _stage("cache_pass[llc]"):
+        llc_hit = cache_pass(
+            mblocks_s[~hit], cfg.llc.sets, cfg.llc.ways, device=profile.device
+        )
     return _finish_prefetch_outcome(
         profile, merged, hit, llc_hit, metadata_bytes, keep_llc_stream
     )
@@ -389,16 +423,20 @@ def simulate_with_prefetch_batch(
     merged = [
         _merge_prefetch_stream(profile, b, p, issuer) for b, p, issuer in streams
     ]
-    l2_hits = cache_pass_batch(
-        [m["mblocks_s"] for m in merged], cfg.l2.sets, cfg.l2.ways,
-        device=profile.device,
-    )
-    llc_hits = cache_pass_batch(
-        [m["mblocks_s"][~h] for m, h in zip(merged, l2_hits)],
-        cfg.llc.sets,
-        cfg.llc.ways,
-        device=profile.device,
-    )
+    with _stage("cache_pass[l2]"):
+        l2_hits = cache_pass_batch(
+            [m["mblocks_s"] for m in merged], cfg.l2.sets, cfg.l2.ways,
+            device=profile.device,
+        )
+        _count_launch(batched=len(streams))
+    with _stage("cache_pass[llc]"):
+        llc_hits = cache_pass_batch(
+            [m["mblocks_s"][~h] for m, h in zip(merged, l2_hits)],
+            cfg.llc.sets,
+            cfg.llc.ways,
+            device=profile.device,
+        )
+        _count_launch(batched=len(streams))
     return [
         _finish_prefetch_outcome(profile, m, h, lh, mb, keep_llc_stream)
         for m, h, lh, mb in zip(merged, l2_hits, llc_hits, meta)
