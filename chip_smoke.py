@@ -91,13 +91,29 @@ Phases (any failure exits non-zero; each prints its seconds):
     ``ArtifactCache`` its first run filled, which must load all 9 workloads
     and build none.  Each cell prints its stage seconds
     (``collect_stages``), ``score``'s parts from its spans and the artifact
-    spans; H is also scored one prefetcher at a time with each step timed,
-    and run once more under ``torch.profiler`` for the device's busy share.
+    spans; G cold and warm give the scheduler's per-access costs.
+14. Sharded and parallel (``tests/data/torch_port_golden_sharded.json``,
+    written from the JAX package), each from a fresh artifact root:
+    S-parity, ``ShardedSpec(bfs/comdblp#s0, 16384)`` with ``amc`` and
+    ``nextline2`` under ``fused`` and ``set_parallel``, rows and manifest
+    (shard sizes, ``eval_from_pos``, epochs, a sha256 of each shard's
+    blocks) equal to the golden file and to the unsharded rows; S-full,
+    ``ShardedSpec(bfs/road-8m, 1 << 22)`` (32,488,421 accesses in 8
+    shards, scored cold), the same checks, its build, phase 1 and replay
+    seconds, peak RSS and the card's peak allocation; P, the scheduler on
+    the card: G under ``run(workers=2)`` from a cold store (no launch in
+    this process, 9 builds in 2 workers, the workers' spans gathered) and
+    ``run(workers=None)`` warm (its ``sched`` printed), both equal to the
+    golden rows, and the mixed grid (bfs/comdblp#s0 beside its
+    ``ShardedSpec`` at 4096) under 2 and 1 workers; then the seconds to
+    start a pool of 1, 2 and 4 workers (import, CUDA context, kernels) and
+    the card's memory a context takes.  Prints the cost model's constants
+    from this run.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
 bfs_do, the gather demo, K3 on D's entries, E, the reduced LMs, F's
-prefill, serve loop and float32 cross-check, and each cell of phase 13)
-and read just after; each
+prefill, serve loop and float32 cross-check, each cell of phase 13 and
+each run of phase 14) and read just after; each
 kernel must have launched on the paths that run it, and the ``launches``
 of the kernels line are the sums over those paths.  Prints the card's
 name and power limit first, a ``{"kernels": ...}`` line, and as the last
@@ -120,6 +136,7 @@ GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 GOLDEN_EVOLVING = ROOT / "tests" / "data" / "torch_port_golden_evolving.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_port_golden_lm.json"
 GOLDEN_GRID = ROOT / "tests" / "data" / "torch_port_golden_grid.json"
+GOLDEN_SHARDED = ROOT / "tests" / "data" / "torch_port_golden_sharded.json"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak (NVIDIA data sheet)
 FADD_CYCLES = 4  # latency of a dependent float32 add on an SM (Hopper)
@@ -1772,11 +1789,14 @@ def score_breakdown(run_trace) -> dict:
     return out
 
 
-def experiment_cell(name: str, gold: dict, dev, cache=None):
+def experiment_cell(name: str, gold: dict, dev, cache=None, workers=1, trace_dir=None):
     """Run one golden cell through ``repro_torch.core.Experiment`` on
-    ``dev`` and hold every row and workload record against the JAX
-    package's; log its stage seconds, ``score``'s parts and the artifact
-    spans.  Returns the ``ExperimentResult``."""
+    ``dev`` (``run(workers=workers)``; a dir-backed trace under
+    ``trace_dir`` also gathers the workers' spans) and hold every row and
+    workload record against the JAX package's; log its stage seconds,
+    ``score``'s parts and the artifact spans.  Returns the
+    ``ExperimentResult`` with ``stage_seconds``, ``span_seconds`` and
+    ``run_trace`` attached."""
     import numpy as np
     import torch
 
@@ -1789,9 +1809,9 @@ def experiment_cell(name: str, gold: dict, dev, cache=None):
     specs = [WorkloadSpec(k, d, hierarchy=hierarchy, seed=s)
              for k, d, s in map(parse_workload, gold["workloads"])]
     t0 = time.perf_counter()
-    with collect_stages() as stages, trace() as tracer:
+    with collect_stages() as stages, trace(dir=trace_dir) as tracer:
         res = Experiment(workloads=specs, prefetchers=gold["prefetchers"], cache=cache,
-                         device=dev).run()
+                         device=dev).run(workers=workers)
     sync(dev)
     secs = time.perf_counter() - t0
     want_device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -1825,57 +1845,33 @@ def experiment_cell(name: str, gold: dict, dev, cache=None):
     log("  span seconds " + json.dumps({k: round(totals[k], 4) for k in
                                         ("build_workload", "artifact_save", "artifact_load")
                                         if k in totals}))
+    res.stage_seconds, res.span_seconds, res.run_trace = dict(stages), totals, tracer.result
     return res
 
 
-def score_steps(w, gold_rows: dict) -> dict:
-    """Host-clock seconds of each step of scoring ``w`` one prefetcher at a
-    time, as ``score_prefetcher`` does (each step ends on the host): the
-    stream, the merge into the demand L2 substream, the K1 pass at L2 and at
-    the LLC, classify + unmerge (``_finish_prefetch_outcome``, of which
-    ``classify_prefetch_events`` is timed once more alone) and
-    ``evaluate``.  Each prefetcher's row must still equal the golden one."""
-    from repro_torch.core import get_prefetcher
-    from repro_torch.core.experiment import _composite_stream
-    from repro_torch.memsim import evaluate
-    from repro_torch.memsim.engine import cache_pass
-    from repro_torch.memsim.hierarchy import _finish_prefetch_outcome, _merge_prefetch_stream
-    from repro_torch.memsim.scan_cache import classify_prefetch_events
+def resident_bytes(obj, seen=None) -> int:
+    """Bytes of the numpy arrays a (nested) dataclass holds, each once."""
+    import dataclasses
 
-    cfg, out = w.profile.cfg, {}
-    for name, want in gold_rows.items():
-        t = [time.perf_counter()]
-        stream = get_prefetcher(name).instantiate()(w)
-        t.append(time.perf_counter())
-        merged = _merge_prefetch_stream(w.profile, *_composite_stream(w, stream))
-        t.append(time.perf_counter())
-        hit = cache_pass(merged["mblocks_s"], cfg.l2.sets, cfg.l2.ways, device=w.device)
-        t.append(time.perf_counter())
-        llc_hit = cache_pass(merged["mblocks_s"][~hit], cfg.llc.sets, cfg.llc.ways,
-                             device=w.device)
-        t.append(time.perf_counter())
-        outcome = _finish_prefetch_outcome(w.profile, merged, hit, llc_hit,
-                                           stream.metadata_bytes, False)
-        t.append(time.perf_counter())
-        m = evaluate(name, w.profile, outcome, baseline_outcome=w.nl_outcome,
-                     eval_from_pos=w.eval_from_pos, issuer=1)
-        t.append(time.perf_counter())
-        classify_prefetch_events(merged["mblocks_s"], merged["m_is_pf_s"], merged["mpos_s"],
-                                 hit, 2 * cfg.pf_fill_window)
-        t.append(time.perf_counter())
-        m.info = stream.info
-        check(jsonable(m.row()) == {k: v for k, v in want.items()
-                                    if k not in ("kernel", "dataset", "prefetcher", "seed")},
-              f"{name}: scored step by step, its row differs from golden")
-        steps = ("stream", "merge", "k1_l2", "k1_llc", "finish", "evaluate", "classify_alone")
-        out[name] = {k: round(b - a, 4) for k, a, b in zip(steps, t, t[1:])}
-    return out
+    import numpy as np
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, np.ndarray):
+        if id(obj) in seen:
+            return 0
+        seen.add(id(obj))
+        return obj.nbytes
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(resident_bytes(getattr(obj, f.name), seen) for f in dataclasses.fields(obj))
+    return 0
 
 
-def phase13(grid: dict, dev, run_path):
+def phase13(grid: dict, dev, run_path) -> dict:
     """Every cell of ``tests/data/torch_port_golden_grid.json`` through
     ``Experiment`` on the card; then ``G`` again from the artifact cache
-    its first run filled."""
+    its first run filled.  Returns what the scheduler's cost model takes
+    from G cold and warm: accesses, build, score and load seconds, the
+    artifacts' bytes and the traces' resident bytes."""
     import os
     import tempfile
 
@@ -1885,8 +1881,20 @@ def phase13(grid: dict, dev, run_path):
     graph = ("lru_hits", "fused_levels")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_") as tmp:
         cold = WorkloadCache(artifacts=ArtifactCache(tmp))
-        run_path("G", graph + ("segment_sum",), lambda: experiment_cell("G", grid["G"], dev, cold))
+        res_g = run_path("G", graph + ("segment_sum",),
+                         lambda: experiment_cell("G", grid["G"], dev, cold))
         check((cold.builds, cold.loads) == (9, 0), f"G cold: {cold.builds} builds, {cold.loads} loads")
+        traces = list(res_g.workloads.values())
+        calib = dict(
+            accesses=sum(w.num_accesses for w in traces),
+            prefetchers=len(grid["G"]["prefetchers"]),
+            build_s=res_g.stage_seconds["trace_gen"] + res_g.stage_seconds["demand_sim"]
+            + res_g.span_seconds["artifact_save"],
+            score_s=res_g.stage_seconds["score"],
+            artifact_bytes=sum(p.stat().st_size for p in Path(tmp).glob("*.npz")),
+            trace_bytes=sum(resident_bytes(w) for w in traces),
+        )
+        del res_g, traces
         for engine, expect in (("fused", graph + ("segment_sum",)),
                                ("set_parallel", ("lru_hits", "segment_sum"))):
             os.environ["REPRO_TORCH_CACHE_ENGINE"] = engine
@@ -1898,20 +1906,287 @@ def phase13(grid: dict, dev, run_path):
                 del os.environ["REPRO_TORCH_CACHE_ENGINE"]
         for name in ("G-quick", "G-tableI"):
             run_path(name, graph + ("segment_sum",), lambda: experiment_cell(name, grid[name], dev))
-        res_h = run_path("H", graph, lambda: experiment_cell("H", grid["H"], dev))
-        w_h = res_h.workload(*parse_workload(grid["H"]["workloads"][0]))
-        gold_h = {r["prefetcher"]: r for r in grid["H"]["rows"]}
-        log("  H scored one prefetcher at a time, step seconds "
-            + json.dumps(score_steps(w_h, gold_h)))
-        del res_h, w_h
-        profile_share("H again", lambda: experiment_cell("H", grid["H"], dev), dev)
+        run_path("H", graph, lambda: experiment_cell("H", grid["H"], dev))
         warm = WorkloadCache(artifacts=ArtifactCache(tmp))
-        run_path("G warm", ("lru_hits",),
-                 lambda: experiment_cell("G (warm artifacts)", grid["G"], dev, warm),
-                 exact={"fused_levels": 0, "segment_sum": 0})
+        res_w = run_path("G warm", ("lru_hits",),
+                         lambda: experiment_cell("G (warm artifacts)", grid["G"], dev, warm),
+                         exact={"fused_levels": 0, "segment_sum": 0})
         check((warm.loads, warm.builds) == (9, 0),
               f"G warm: {warm.loads} loads, {warm.builds} builds, expected 9 and 0")
+        calib["load_s"] = res_w.span_seconds["artifact_load"]
     log(f"  phase 13 seconds {time.perf_counter() - t0:.1f}")
+    return calib
+
+
+# ------------------------------------------------------------ phase 14
+SHARD_MANIFEST_KEYS = ("kernel", "dataset", "seed", "num_accesses", "shard_accesses",
+                       "shard_sizes", "iter_epochs", "eval_from_pos", "num_vertices",
+                       "num_edges", "base")
+
+
+def sharded_specs(cell: dict) -> list:
+    """A cell's workloads: ``"kernel/dataset#sSEED"``, with ``"@N"`` for a
+    ``ShardedSpec`` of N accesses a shard."""
+    from repro_torch import memsim
+    from repro_torch.core import WorkloadSpec
+    from repro_torch.core.exec.sharded import ShardedSpec
+
+    specs = []
+    for name in cell["workloads"]:
+        name, _, shard = name.partition("@")
+        kernel, dataset, seed = parse_workload(name)
+        base = WorkloadSpec(kernel, dataset, seed=seed,
+                            hierarchy=getattr(memsim, cell["hierarchy"]))
+        specs.append(ShardedSpec(base, int(shard)) if shard else base)
+    return specs
+
+
+def shard_manifest(arts, spec) -> dict:
+    """The manifest's identity fields and a sha256 of each shard's blocks."""
+    import numpy as np
+
+    m = arts.load_manifest(spec)
+    check(m is not None and arts.has(spec), f"no committed shard store for {spec}")
+    rec = {k: m[k] for k in SHARD_MANIFEST_KEYS}
+    rec["block_sha256"] = [
+        hashlib.sha256(np.ascontiguousarray(arts.load_shard(spec, i)["block"]).tobytes()).hexdigest()
+        for i in range(len(m["shard_sizes"]))
+    ]
+    return rec
+
+
+def sharded_cell(name: str, gold: dict, dev, root: Path, workers=1):
+    """Run one cell of ``tests/data/torch_port_golden_sharded.json``
+    through ``Experiment(...).run(workers=workers)`` on ``dev`` from a fresh
+    artifact root, and hold its rows and every shard manifest against the
+    JAX package's.  Logs the stage seconds and the sharded spans (build,
+    phase 1 and its K2 passes, each replay); returns the rows."""
+    from repro_torch.core import ArtifactCache, Experiment, WorkloadCache
+    from repro_torch.core.exec import collect_stages
+    from repro_torch.core.obs import trace
+
+    specs = sharded_specs(gold)
+    arts = ArtifactCache(root)
+    t0 = time.perf_counter()
+    with collect_stages() as stages, trace() as tracer:
+        res = Experiment(workloads=specs, prefetchers=gold["prefetchers"],
+                         cache=WorkloadCache(artifacts=arts), device=dev).run(workers=workers)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    rows = jsonable(res.rows())
+    for got, want in zip(rows, gold["rows"]):
+        if got != want:
+            diff = {k: (got.get(k), want.get(k)) for k in want if got.get(k) != want.get(k)}
+            raise SmokeError(f"{name}: row {want['kernel']}/{want['dataset']}/"
+                             f"{want['prefetcher']} differs from golden: {diff}")
+    check(len(rows) == len(gold["rows"]), f"{name}: {len(rows)} rows, golden {len(gold['rows'])}")
+    for wname, spec in zip(gold["workloads"], specs):
+        if wname in gold["manifests"]:
+            got = shard_manifest(arts, spec)
+            check(got == gold["manifests"][wname], f"{name}: {wname}'s manifest differs from golden")
+    sp = tracer.result.stage_totals()
+    replays = {}
+    for r in tracer.result.by_name("sharded_replay"):
+        replays[r.attrs["prefetcher"]] = replays.get(r.attrs["prefetcher"], 0.0) + r.dur
+    parts = dict(total=secs, build=sp.get("ensure_shards", 0.0),
+                 score=stages.get("score", 0.0), phase1=sp.get("sharded_sweep", 0.0),
+                 phase1_demand=sp.get("shard_demand", 0.0),
+                 k1_passes=stages.get("cache_pass[l2]", 0.0) + stages.get("cache_pass[llc]", 0.0),
+                 replays=replays)
+    log(f"  {name}: {len(rows)} rows and {len(gold['manifests'])} manifests == golden "
+        f"(workers={workers}), {secs:.2f} s; seconds " + json.dumps(
+            {k: round(v, 3) if isinstance(v, float) else {a: round(b, 3) for a, b in v.items()}
+             for k, v in parts.items()}))
+    return rows
+
+
+class RssPeak:
+    """The largest ``VmRSS`` of this process, read from ``/proc/self/status``
+    every 50 ms by a thread while the block runs (``kib``; None where the
+    file has no ``VmRSS``)."""
+
+    def __init__(self):
+        import threading
+
+        self.kib, self._stop = None, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def read():
+        try:
+            return int(Path("/proc/self/status").read_text().split("VmRSS:")[1].split()[0])
+        except (OSError, IndexError, ValueError):
+            return None
+
+    def _run(self):
+        while True:
+            now = self.read()
+            if now is not None:
+                self.kib = max(self.kib or 0, now)
+            if self._stop.wait(0.05):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _warm_worker(device: str, barrier: str, n: int):
+    """A pool worker's start: import the port, open a CUDA context, load
+    the graph path's kernels; then wait for all ``n`` workers (a file each
+    under ``barrier``) and report the card's free memory."""
+    import os
+
+    import torch
+
+    from repro_torch.core.exec.scheduler import graph_kernel_sources
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    dev = resolve_device(device)
+    torch.zeros(1, device=dev)
+    for src in graph_kernel_sources():
+        build.load(src)
+    Path(barrier, str(os.getpid())).touch()
+    deadline = time.time() + 300
+    while len(os.listdir(barrier)) < n and time.time() < deadline:
+        time.sleep(0.01)
+    return os.getpid(), torch.cuda.mem_get_info(dev)[0]
+
+
+def spawn_times(dev, root: Path) -> dict:
+    """Seconds until a spawned pool of P workers (P = 1, 2, 4) has every
+    worker started as the scheduler's workers start (``_spawn_pool``), and
+    the card's free memory each worker's context takes; fits t(P) = base +
+    P x per_worker."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ArtifactCache
+    from repro_torch.core.exec import scheduler
+
+    out = {}
+    for n in (1, 2, 4):
+        barrier = root / f"barrier{n}"
+        barrier.mkdir(parents=True)
+        free0 = torch.cuda.mem_get_info(dev)[0]
+        t0 = time.perf_counter()
+        with scheduler._spawn_pool(ArtifactCache(root), n, n, dev) as pool:
+            got = [f.result() for f in [pool.submit(_warm_worker, str(dev), str(barrier), n)
+                                        for _ in range(n)]]
+            t = time.perf_counter() - t0
+        check(len({pid for pid, _ in got}) == n, f"spawn timing: {n} tasks ran in "
+              f"{len({pid for pid, _ in got})} workers")
+        out[n] = dict(seconds=t, context_bytes=(free0 - min(f for _, f in got)) / n,
+                      with_shutdown=time.perf_counter() - t0)
+    ps = np.array(sorted(out), dtype=float)
+    per_worker, base = np.polyfit(ps, [out[int(p)]["seconds"] for p in ps], 1)
+    log("  spawn seconds " + json.dumps({n: {k: round(v, 3) for k, v in d.items()}
+                                         for n, d in out.items()})
+        + f"; fit t(P) = {base:.3f} + {per_worker:.3f} P")
+    return dict(base=float(base), per_worker=float(per_worker),
+                context_bytes=float(np.median([d["context_bytes"] for d in out.values()])))
+
+
+def phase14(gold: dict, grid: dict, dev, run_path, calib: dict):
+    """Sharded and parallel on the card: S-parity under both engines and
+    beside its unsharded rows, S-full at paper scale, the scheduler's pool
+    (G cold under ``workers=2``, then ``workers=None`` warm; the mixed
+    grid under ``workers=2`` and 1), and the spawn timing; then the cost
+    model's constants from this run."""
+    import os
+    import resource
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    graph = ("lru_hits", "fused_levels")
+    no_launch = dict(lru_hits=0, fused_levels=0, segment_sum=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase14_") as tmp:
+        tmp = Path(tmp)
+        rows_by_engine = {}
+        for engine, expect, exact in (("fused", graph, None),
+                                      ("set_parallel", ("lru_hits",), {"fused_levels": 0})):
+            os.environ["REPRO_TORCH_CACHE_ENGINE"] = engine
+            try:
+                rows_by_engine[engine] = run_path(
+                    f"S-parity ({engine})", expect,
+                    lambda: sharded_cell(f"S-parity ({engine})", gold["S-parity"], dev,
+                                         tmp / f"parity-{engine}"), exact=exact)
+            finally:
+                del os.environ["REPRO_TORCH_CACHE_ENGINE"]
+        plain = dict(gold["S-parity"], workloads=["bfs/comdblp#s0"], manifests={})
+        plain_rows = run_path("S-parity unsharded", graph, lambda: sharded_cell(
+            "S-parity unsharded", dict(plain, rows=gold["S-parity"]["rows"]), dev, tmp / "plain"))
+        check(plain_rows == rows_by_engine["fused"] == rows_by_engine["set_parallel"],
+              "S-parity: sharded rows differ from the unsharded rows")
+
+        rss0 = RssPeak.read()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with RssPeak() as rss:
+            run_path("S-full", graph, lambda: sharded_cell("S-full", gold["S-full"], dev,
+                                                           tmp / "full"))
+        peak_dev = torch.cuda.max_memory_allocated(dev)
+        manifest = gold["S-full"]["manifests"]["bfs/road-8m#s0@4194304"]
+        log(f"  S-full: {manifest['num_accesses']:,} accesses in {len(manifest['shard_sizes'])} "
+            f"shards; ru_maxrss {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB "
+            f"(the process's life); VmRSS {rss0} KiB before S-full, at most {rss.kib} KiB "
+            f"during it (sampled every 50 ms); torch.cuda.max_memory_allocated {peak_dev:,} B")
+
+        p_root = tmp / "pool"
+        from repro_torch.core import ArtifactCache, WorkloadCache
+
+        res = run_path("P: G workers=2", (), lambda: experiment_cell(
+            "P: G workers=2 (cold)", grid["G"], dev, WorkloadCache(artifacts=ArtifactCache(p_root)),
+            workers=2, trace_dir=tmp / "trace-P"), exact=no_launch)
+        tasks = res.run_trace.by_name("run_task") + res.run_trace.by_name("materialize")
+        builds = [sp for sp in res.run_trace.by_name("materialize") if sp.attrs.get("cache") == "build"]
+        pids = {sp.pid for sp in tasks}
+        check(len(builds) == 9 and os.getpid() not in pids and len(pids) == 2,
+              f"P: {len(builds)} builds in workers {sorted(pids)}, expected 9 in 2 workers")
+        check(all(sp.attrs["device"] == str(dev) for sp in res.run_trace.by_name("run_task")),
+              "P: a worker ran off the card")
+        log(f"  P: workers {sorted(pids)} built 9 workloads and ran "
+            f"{len(res.run_trace.by_name('run_task'))} score tasks on {dev}; their K2 launches "
+            f"{res.run_trace.metrics['counters'].get('fused.launches', 0):.0f}")
+        res = run_path("P: G workers=None", (), lambda: experiment_cell(
+            "P: G workers=None (warm)", grid["G"], dev, WorkloadCache(artifacts=ArtifactCache(p_root)),
+            workers=None))
+        check(res.sched is not None and {"mode", "workers", "reason"} <= set(res.sched),
+              f"P: run() gave no scheduler decision: {res.sched}")
+        log("  P: sched " + json.dumps(res.sched))
+        del res
+        mixed = {}
+        for workers in (2, 1):
+            mixed[workers] = run_path(
+                f"P: mixed workers={workers}", () if workers > 1 else graph,
+                lambda: sharded_cell(f"P: mixed workers={workers}", gold["mixed"], dev,
+                                     tmp / f"mixed{workers}", workers=workers),
+                exact=no_launch if workers > 1 else None)
+        check(mixed[2] == mixed[1] and mixed[1][:2] == mixed[1][2:],
+              "P: the mixed grid's rows differ between workers=2 and 1, or sharded from unsharded")
+        spawn = spawn_times(dev, tmp / "spawn")
+
+    shard = manifest["shard_accesses"]
+    consts = dict(
+        BUILD_S_PER_ACCESS=calib["build_s"] / calib["accesses"],
+        SCORE_S_PER_ACCESS=calib["score_s"] / (calib["accesses"] * calib["prefetchers"]),
+        LOAD_S_PER_ACCESS=calib["load_s"] / calib["accesses"],
+        ARTIFACT_BYTES_PER_ACCESS=calib["artifact_bytes"] / calib["accesses"],
+        TRACE_BYTES_PER_ACCESS=calib["trace_bytes"] / calib["accesses"],
+        DEVICE_BYTES_PER_ACCESS=peak_dev / shard,
+        SPAWN_BASE_S=spawn["base"],
+        SPAWN_PER_WORKER_S=spawn["per_worker"],
+        CUDA_CONTEXT_BYTES=spawn["context_bytes"],
+    )
+    log("  cost model from this run " + json.dumps({k: float(f"{v:.4g}") for k, v in consts.items()})
+        + f" (G: {calib['accesses']:,} accesses)")
+    log(f"  phase 14 seconds {time.perf_counter() - t0:.1f}")
 
 
 # ------------------------------------------------------------ main
@@ -1961,7 +2236,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch").is_dir() or not all(
-            g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM, GOLDEN_GRID)):
+            g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM, GOLDEN_GRID, GOLDEN_SHARDED)):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 2
@@ -2126,7 +2401,13 @@ def main() -> int:
     phase("phase 13: Experiment on the card against the JAX package's grid rows: G (the BENCH "
           "v9 grid), G-fused under the fused and set_parallel engines, G-quick, G-tableI, H "
           "(bellmanford/google, PAPER); G again from a warm artifact cache")
-    phase13(json.loads(GOLDEN_GRID.read_text()), dev, run_path)
+    grid = json.loads(GOLDEN_GRID.read_text())
+    calib = phase13(grid, dev, run_path)
+
+    phase("phase 14: sharded and parallel: S-parity (bfs/comdblp at 16,384-access shards) under "
+          "the fused and set_parallel engines, S-full (bfs/road-8m at 4,194,304-access shards), "
+          "the scheduler's pool (G under workers=2 and None, the mixed grid), spawn timing")
+    phase14(json.loads(GOLDEN_SHARDED.read_text()), grid, dev, run_path, calib)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["name"] in route_totals:

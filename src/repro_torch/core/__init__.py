@@ -18,13 +18,13 @@ Subpackages:
   driver       -- the workload driver tying apps, traces, memsim and
                   prefetchers together
   experiment   -- the Experiment grid and per-stream scoring
-  exec         -- the content-addressed workload artifact cache and the
-                  stage timers
+  exec         -- parallel execution engine: process-pool grid scheduler,
+                  the content-addressed workload artifact cache, sharded
+                  paper-scale traces and the stage timers
   obs          -- spans, the metrics registry and run manifests
 
 Not yet ported (each raises ``NotImplementedError`` naming its item of
-ROADMAP queue 1): ``Experiment.run(workers >= 2)``, the scheduler and
-sharded specs (item 4), stream specs (item 5) and serve specs (item 6).
+ROADMAP queue 1): stream specs (item 5) and serve specs (item 6).
 """
 from repro_torch.core.driver import WorkloadSpec, WorkloadTrace, build_workload
 from repro_torch.core.exec.artifacts import ArtifactCache

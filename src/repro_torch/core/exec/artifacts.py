@@ -29,10 +29,19 @@ Properties:
   followed by an atomic ``os.replace``; unreadable or truncated artifacts
   read as cache misses and are rebuilt.
 
+Two more stores share the root and the keys:
+
+- **Measured-cost sidecars** (:meth:`ArtifactCache.record_cost`): the
+  build and score seconds of earlier runs, which the scheduler's cost
+  model prefers to its constants.
+- **The sharded trace store** (:meth:`ArtifactCache.save_shard`,
+  :meth:`ArtifactCache.save_manifest`): a paper-scale trace as
+  fixed-size shard files and one JSON manifest, written last, whose
+  presence commits the build.  The port marker is in these keys too, so a
+  shard store the JAX package built under the same root reads as absent.
+
 Location: ``$REPRO_TORCH_WORKLOAD_CACHE`` if set, else
-``~/.cache/repro-amc-torch/workloads``.  The sharded trace store and the
-measured-cost sidecars of the JAX package serve its scheduler, ROADMAP
-queue 1 item 4, and come with it.
+``~/.cache/repro-amc-torch/workloads``.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import hashlib
 import json
 import os
 import tempfile
+import zipfile
 from pathlib import Path
 from typing import Optional
 
@@ -128,10 +138,134 @@ class ArtifactCache:
         return json.dumps(doc, sort_keys=True)
 
     def path_for(self, spec: WorkloadSpec) -> Path:
+        if getattr(spec, "is_sharded", False):
+            return self.manifest_path(spec)
         digest = hashlib.sha256(self.key(spec).encode()).hexdigest()[:20]
         # ``g`` marks a graph-content digest: identical content, one file.
         tag = "g" if callable(getattr(spec, "content_key", None)) else ""
         return self.root / f"{spec.kernel}_{spec.dataset}_s{spec.seed}_{tag}{digest}.npz"
+
+    def has(self, spec: WorkloadSpec) -> bool:
+        """Cheap presence + integrity probe (no array decompression).
+
+        Reads only the zip central directory, at the end of the file, so a
+        truncated write reads as absent, and the scheduler, which splits
+        only materialized workloads, never fans a doomed load out.  Sharded
+        specs check the manifest (written last, the commit point) and every
+        shard file it names.
+        """
+        if getattr(spec, "is_sharded", False):
+            manifest = self.load_manifest(spec)
+            if manifest is None:
+                return False
+            return all(
+                self.shard_path(spec, i).exists()
+                for i in range(len(manifest["shard_sizes"]))
+            )
+        try:
+            with zipfile.ZipFile(self.path_for(spec)) as z:
+                return "meta.npy" in z.namelist()  # np.savez appends .npy
+        except (OSError, zipfile.BadZipFile):
+            return False
+
+    # ---------------------------------------------- measured-cost sidecar
+    #
+    # Workers and the serial runner record measured build/score seconds
+    # next to each artifact; the scheduler's cost model prefers them to its
+    # per-access constants (``scheduler.estimate_cost``).  The sidecar
+    # shares the artifact's digest, so whatever moves the artifact key
+    # orphans the stale timings with it.
+
+    def cost_path(self, spec) -> Path:
+        return self.path_for(spec).with_suffix(".cost.json")
+
+    def load_cost(self, spec) -> Optional[dict]:
+        """Measured timings for ``spec``: ``{"build_s": float,
+        "score_s_per_prefetcher": float}`` (either key may be absent), or
+        None when nothing was recorded (unreadable == absent)."""
+        try:
+            with open(self.cost_path(spec)) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            return None
+        return doc if isinstance(doc, dict) else None
+
+    def record_cost(self, spec, **seconds: float) -> None:
+        """Merge measured timing fields into ``spec``'s cost sidecar.
+
+        The latest measurement wins per field; the write is atomic and a
+        failure is swallowed: a missing sidecar only costs the scheduler
+        its constant-based estimate.
+        """
+        doc = self.load_cost(spec) or {}
+        doc.update({k: float(v) for k, v in seconds.items()})
+        try:
+            self.root.mkdir(parents=True, exist_ok=True)
+            _atomic_write(
+                self.root, self.cost_path(spec), "w",
+                lambda f: json.dump(doc, f, sort_keys=True),
+            )
+        except OSError:
+            pass
+
+    # ---------------------------------------------- sharded trace store
+    #
+    # Shard ``i`` is keyed on sha256(key(spec) + "#shard" + i): the spec
+    # identity (shard size and port marker included) plus the index.  The
+    # manifest, keyed on the spec alone, is written after every shard, so
+    # a build killed midway reads as absent.
+
+    def _shard_digest(self, spec, index: Optional[int] = None) -> str:
+        doc = self.key(spec)
+        if index is not None:
+            doc = f"{doc}#shard{index}"
+        return hashlib.sha256(doc.encode()).hexdigest()[:20]
+
+    def manifest_path(self, spec) -> Path:
+        name = (
+            f"{spec.kernel}_{spec.dataset}_s{spec.seed}"
+            f"_{self._shard_digest(spec)}.manifest.json"
+        )
+        return self.root / name
+
+    def shard_path(self, spec, index: int) -> Path:
+        name = (
+            f"{spec.kernel}_{spec.dataset}_s{spec.seed}"
+            f"_k{index}_{self._shard_digest(spec, index)}.npz"
+        )
+        return self.root / name
+
+    def load_manifest(self, spec) -> Optional[dict]:
+        try:
+            with open(self.manifest_path(spec)) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if manifest.get("schema") != ARTIFACT_SCHEMA:
+            return None
+        return manifest
+
+    def save_manifest(self, spec, manifest: dict) -> Path:
+        path = self.manifest_path(spec)
+        self.root.mkdir(parents=True, exist_ok=True)
+        doc = {"schema": ARTIFACT_SCHEMA, **manifest}
+        _atomic_write(
+            self.root, path, "w", lambda f: json.dump(doc, f, sort_keys=True)
+        )
+        return path
+
+    def save_shard(self, spec, index: int, arrays: dict) -> Path:
+        path = self.shard_path(spec, index)
+        self.root.mkdir(parents=True, exist_ok=True)
+        _atomic_write(
+            self.root, path, "wb", lambda f: np.savez_compressed(f, **arrays)
+        )
+        self.saves += 1
+        return path
+
+    def load_shard(self, spec, index: int) -> dict:
+        with np.load(self.shard_path(spec, index), allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
 
     def load(self, spec: WorkloadSpec, device: DeviceLike = None) -> Optional[WorkloadTrace]:
         """The cached trace for ``spec`` with its profile on ``device``
@@ -159,20 +293,29 @@ class ArtifactCache:
         path = self.path_for(spec)
         self.root.mkdir(parents=True, exist_ok=True)
         with obs.span("artifact_save", cache_key=path.name):
-            fd, tmp = tempfile.mkstemp(dir=self.root, suffix=".tmp")
-            try:
-                with os.fdopen(fd, "wb") as f:
-                    np.savez_compressed(f, **_pack(trace))
-                os.replace(tmp, path)
-            except BaseException:
-                try:
-                    os.unlink(tmp)
-                except OSError:
-                    pass
-                raise
+            _atomic_write(
+                self.root, path, "wb",
+                lambda f: np.savez_compressed(f, **_pack(trace)),
+            )
             self.saves += 1
             obs.inc("artifact_cache.saves")
             return path
+
+
+def _atomic_write(root: Path, path: Path, mode: str, write) -> None:
+    """``write(f)`` into a temp file under ``root``, then ``os.replace`` it
+    onto ``path``: readers see the old file or the whole new one."""
+    fd, tmp = tempfile.mkstemp(dir=root, suffix=".tmp")
+    try:
+        with os.fdopen(fd, mode) as f:
+            write(f)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def _pack(trace: WorkloadTrace) -> dict:

@@ -24,15 +24,22 @@ merged into the demand L2 substream, L2 and LLC are re-simulated on the
 workload's device, and :func:`~repro_torch.memsim.metrics.evaluate` scores
 issuer X against the baseline run.
 
-Ported: the serial path.  Not yet ported, each raising
-``NotImplementedError`` that names its ROADMAP queue 1 item: ``run(workers
->= 2)`` and sharded specs (the scheduler and the sharded trace store, item
-4), stream specs (item 5) and serve specs (item 6).
+``run(workers=N)`` shards the grid's cells across a spawned process pool
+(:mod:`repro_torch.core.exec.scheduler`), each worker on the same device;
+``run()`` asks the scheduler's cost model whether a pool pays.  A
+:class:`~repro_torch.core.exec.sharded.ShardedSpec` workload is scored
+from its on-disk shard store with bounded memory.  Not yet ported, each
+raising ``NotImplementedError`` that names its ROADMAP queue 1 item:
+stream specs (item 5) and serve specs (item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import pickle
+import time
+from collections.abc import Mapping
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +47,7 @@ import torch
 
 from repro_torch.core.driver import WorkloadSpec, WorkloadTrace, make_session
 from repro_torch.core.exec.artifacts import ArtifactCache
-from repro_torch.core.exec.timers import stage
+from repro_torch.core.exec.timers import record, stage
 from repro_torch.core.obs import spans as obs
 from repro_torch.core.registry import Prefetcher, resolve_prefetchers
 from repro_torch.device import DeviceLike, resolve_device
@@ -54,10 +61,8 @@ from repro_torch.memsim import (
     simulate_with_prefetch_batch,
 )
 
-# What the serial path does not run yet, by the ROADMAP item that ports it.
-_SCHEDULER_ITEM = "the process-pool scheduler (ROADMAP queue 1 item 4)"
+# What the port does not run yet, by the ROADMAP item that ports it.
 _NOT_PORTED = (
-    ("is_sharded", "sharded specs", "the sharded trace store (ROADMAP queue 1 item 4)"),
     ("is_stream", "stream specs", "the stream protocol (ROADMAP queue 1 item 5)"),
     ("is_serve", "serve specs", "the serving protocol (ROADMAP queue 1 item 6)"),
 )
@@ -234,9 +239,13 @@ class WorkloadCache:
                 obs.inc("workload_cache.builds")
                 if sp:
                     sp.attrs["cache"] = "build"
+                t0 = time.perf_counter()
                 trace = spec.build(device=dev)
                 if self.artifacts is not None:
                     self.artifacts.save(spec, trace)
+                    self.artifacts.record_cost(
+                        spec, build_s=time.perf_counter() - t0
+                    )
             if ck is not None:
                 self._by_content.setdefault(ck, trace)
             self._store[spec] = trace
@@ -249,6 +258,38 @@ class WorkloadCache:
 
     def __len__(self) -> int:
         return len(self._store)
+
+
+class _LazyWorkloads(Mapping):
+    """``ExperimentResult.workloads`` view that materializes traces on
+    first access (artifact-cache load, else rebuild).
+
+    After a parallel run the built traces live in the artifact store, not
+    in the parent process; loading all of them eagerly would charge every
+    grid run for workloads the caller never reads.  Keys are present up
+    front (iteration, ``len``, membership are free); values materialize
+    through the experiment's workload cache on demand — including via
+    ``dict(...)``/``.items()``, which go through ``__getitem__``.
+    """
+
+    def __init__(self, loader, specs):
+        self._specs = list(specs)
+        self._keys = set(self._specs)
+        self._loader = loader
+
+    def __getitem__(self, spec):
+        if spec not in self._keys:
+            raise KeyError(spec)
+        return self._loader(spec)
+
+    def __contains__(self, spec):  # the Mapping mixin would materialize
+        return spec in self._keys
+
+    def __iter__(self):
+        return iter(self._specs)
+
+    def __len__(self):
+        return len(self._specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,12 +313,16 @@ class ExperimentResult:
     ``workloads`` is keyed by the full :class:`WorkloadSpec` (specs
     differing only in hierarchy or element sizes stay distinct); filter
     cells by ``spec=`` when kernel/dataset/seed alone are ambiguous.
+    After a parallel run it is a lazy mapping that loads each trace from
+    the artifact store on first access.  Sharded specs have no whole trace
+    and are never in it.
     """
 
     cells: List[CellResult]
-    workloads: Dict[WorkloadSpec, WorkloadTrace]
-    # The scheduler's decision; None on the serial path, the only one
-    # ported (the cost model is ROADMAP queue 1 item 4).
+    workloads: Mapping
+    # The scheduler's decision (``SchedDecision.as_dict()``) when
+    # ``run(workers=None)`` consulted its cost model; None when the caller
+    # fixed ``workers``.
     sched: Optional[dict] = None
     # Run telemetry: the run manifest (git sha, engine, emitter, schema
     # versions, torch version, device name), workload-cache counters, and
@@ -357,8 +402,11 @@ class Experiment:
     ``(name, generator)`` pairs, or a mapping — see
     :func:`repro_torch.core.registry.resolve_prefetchers`.  Every workload
     is built, and scored, on ``device`` (default the CUDA card; a run with
-    no card raises).  Sharded, stream and serve specs raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    no card raises), in this process or in the scheduler's workers.
+    ``workloads`` may mix plain specs and
+    :class:`~repro_torch.core.exec.sharded.ShardedSpec` ones; stream and
+    serve specs raise ``NotImplementedError`` naming the ROADMAP item that
+    ports them.
     """
 
     def __init__(
@@ -418,55 +466,187 @@ class Experiment:
             for name in self.prefetcher_names
         ]
 
-    def run(self, verbose: bool = False, workers: Optional[int] = None) -> ExperimentResult:
+    def run(
+        self,
+        verbose: bool = False,
+        workers: Optional[int] = None,
+        pipeline: bool = True,
+    ) -> ExperimentResult:
         """Build every workload (cached) and score every grid cell.
 
-        Runs the serial path, in-process on ``device``: ``workers=None``
-        and ``workers=1`` alike, and ``result.sched`` stays ``None`` (the
-        JAX package's ``workers=None`` consults the scheduler's cost model,
-        which is not ported).  ``workers >= 2`` needs the process-pool
-        scheduler and raises ``NotImplementedError`` (ROADMAP queue 1
-        item 4).  Cell order and every metric equal the JAX package's.
+        ``workers=N`` (N >= 2) opts into the parallel execution engine:
+        cells are sharded across a spawned process pool, grouped by
+        workload so each trace is built once, with built traces persisted
+        in the workload artifact cache; every worker runs on ``device``.
+        ``workers=1`` forces the serial path, in this process.  The default
+        (``workers=None``) consults the scheduler's cost model
+        (:func:`repro_torch.core.exec.scheduler.plan_execution`): a pool is
+        spawned only when its predicted time — spawn overhead plus the
+        load-balanced makespan — beats running in-process.  On one core,
+        under host or card memory pressure, or with unpicklable ad-hoc
+        prefetchers (which cannot cross the spawn boundary) the run stays
+        serial.  The decision is surfaced as ``result.sched``.
+
+        ``pipeline`` selects the overlapped schedule (score tasks
+        dispatched as their builds complete) over the phased
+        materialize-all-then-score-all schedule; both are bit-identical to
+        serial.  Cell order and every metric equal the JAX package's.
         """
-        if workers is not None and workers > 1:
-            raise NotImplementedError(
-                f"Experiment.run(workers={workers}) needs {_SCHEDULER_ITEM}, "
-                "which is not ported yet; run with workers=None or 1"
-            )
         with obs.span(
             "experiment_run",
             workloads=len(self.workload_specs),
             prefetchers=self.prefetcher_names,
         ):
-            result = self._run_impl(verbose)
+            result = self._run_impl(verbose, workers, pipeline)
         result.telemetry = self._telemetry(result.sched)
         return result
 
-    def _run_impl(self, verbose: bool) -> ExperimentResult:
+    def _cell(self, spec, name: str, m: PrefetchMetrics, verbose: bool) -> CellResult:
+        if verbose:
+            print(
+                f"[{spec.kernel}/{spec.dataset}] {name}: "
+                f"speedup {m.speedup:.2f} coverage {m.coverage:.2f} "
+                f"accuracy {m.accuracy:.2f}"
+            )
+        return CellResult(
+            kernel=spec.kernel,
+            dataset=spec.dataset,
+            prefetcher=name,
+            seed=spec.seed,
+            metrics=m,
+            spec=spec,
+        )
+
+    def _run_impl(
+        self, verbose: bool, workers: Optional[int], pipeline: bool
+    ) -> ExperimentResult:
+        sched = None
+        if workers is None:
+            sched = self._plan_schedule()
+            record(f"sched_decision[{sched.mode}]")
+            workers = sched.workers
+        if workers > 1:
+            result = self._run_parallel(workers, verbose, pipeline)
+            result.sched = sched.as_dict() if sched is not None else None
+            return result
         cells: List[CellResult] = []
         traces: Dict[WorkloadSpec, WorkloadTrace] = {}
         for spec in self.workload_specs:
+            if getattr(spec, "is_sharded", False):
+                # Sharded cells stream from the on-disk shard store (never a
+                # whole WorkloadTrace), so they always need an artifact cache
+                # — attach the default one exactly as the parallel path does.
+                from repro_torch.core.exec import sharded
+
+                if self.cache.artifacts is None:
+                    self.cache.artifacts = ArtifactCache()
+                for name, m in sharded.score_sharded(
+                    spec, self.prefetchers, self.cache.artifacts, device=self.device
+                ):
+                    cells.append(self._cell(spec, name, m, verbose))
+                continue
             w = self.cache.get_or_build(spec, device=self.device)
             traces[spec] = w
+            t0 = time.perf_counter()
             metrics = score_prefetchers_batched(w, self.prefetchers)
-            for name, m in zip(self.prefetcher_names, metrics):
-                cells.append(
-                    CellResult(
-                        kernel=spec.kernel,
-                        dataset=spec.dataset,
-                        prefetcher=name,
-                        seed=spec.seed,
-                        metrics=m,
-                        spec=spec,
-                    )
+            if self.cache.artifacts is not None and self.prefetchers:
+                self.cache.artifacts.record_cost(
+                    spec,
+                    score_s_per_prefetcher=(
+                        (time.perf_counter() - t0) / len(self.prefetchers)
+                    ),
                 )
-                if verbose:
-                    print(
-                        f"[{spec.kernel}/{spec.dataset}] {name}: "
-                        f"speedup {m.speedup:.2f} coverage {m.coverage:.2f} "
-                        f"accuracy {m.accuracy:.2f}"
-                    )
-        return ExperimentResult(cells=cells, workloads=traces)
+            for name, m in zip(self.prefetcher_names, metrics):
+                cells.append(self._cell(spec, name, m, verbose))
+        result = ExperimentResult(cells=cells, workloads=traces)
+        result.sched = sched.as_dict() if sched is not None else None
+        return result
+
+    def _plan_schedule(self):
+        """Resolve ``workers=None`` through the scheduler's cost model.
+
+        Every workload is costed against the artifact store;
+        :func:`repro_torch.core.exec.scheduler.plan_execution` then picks
+        serial in-process execution or a pipelined pool sized from the
+        predicted makespan, the host's cores and memory and, on a card,
+        its free memory.  Unpicklable ad-hoc prefetchers force serial
+        (``workers=N`` rejects them loudly, but a *default* must tolerate
+        them)."""
+        from repro_torch.core.exec import scheduler  # lazy: avoids import cycle
+
+        try:
+            for _, gen in self.prefetchers:
+                pickle.dumps(gen)
+        except Exception:
+            return scheduler.SchedDecision(
+                mode="serial",
+                workers=1,
+                est_serial_s=0.0,
+                est_pool_s=None,
+                reason=(
+                    "unpicklable ad-hoc prefetchers cannot cross the "
+                    "spawn boundary"
+                ),
+                cores=os.cpu_count() or 1,
+                n_tasks=0,
+                measured_frac=0.0,
+            )
+        artifacts = (
+            self.cache.artifacts
+            if self.cache.artifacts is not None
+            else ArtifactCache()
+        )
+        return scheduler.plan_execution(
+            self.workload_specs, len(self.prefetchers), artifacts,
+            device=self.device,
+        )
+
+    def _run_parallel(
+        self, workers: int, verbose: bool, pipeline: bool = True
+    ) -> ExperimentResult:
+        from repro_torch.core.exec import scheduler  # lazy: avoids import cycle
+
+        if self.cache.artifacts is None:
+            # Workers share builds through the artifact store; attach the
+            # default one so the in-process cache sees the same artifacts.
+            self.cache.artifacts = ArtifactCache()
+        metrics, prebuilt = scheduler.run_grid(
+            self.workload_specs,
+            self.prefetchers,
+            workers=workers,
+            artifacts=self.cache.artifacts,
+            verbose=verbose,
+            pipeline=pipeline,
+            device=self.device,
+        )
+        # Later experiments sharing this cache reuse any parent-side builds.
+        for spec, trace in prebuilt.items():
+            self.cache._store.setdefault(spec, trace)
+        cells = [
+            CellResult(
+                kernel=spec.kernel,
+                dataset=spec.dataset,
+                prefetcher=name,
+                seed=spec.seed,
+                metrics=metrics[(spec, name)],
+                spec=spec,
+            )
+            for spec in self.workload_specs
+            for name in self.prefetcher_names
+        ]
+        # Workers persisted their traces in the artifact store; materialize
+        # them lazily so runs that only read metrics never pay the loads.
+        # Sharded cells have no whole-trace artifact to load, so they are
+        # never part of the workloads mapping (serial runs agree).
+        workloads = _LazyWorkloads(
+            lambda spec: self.cache.get_or_build(spec, device=self.device),
+            dict.fromkeys(
+                s
+                for s in self.workload_specs
+                if not getattr(s, "is_sharded", False)
+            ),
+        )
+        return ExperimentResult(cells=cells, workloads=workloads)
 
     def _telemetry(self, sched: Optional[dict]) -> dict:
         """Provenance + counters block for ``ExperimentResult.telemetry``."""

@@ -39,7 +39,7 @@ def reduced_grid():
         res = Experiment(
             kernels=["cc", "bellmanford"], datasets=["comdblp"],
             prefetchers=PREFETCHERS, device="cpu",
-        ).run()
+        ).run(workers=1)
     return res, stages
 
 
@@ -190,25 +190,26 @@ def test_stage_and_span_are_noops_with_nothing_active(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    from repro.core.exec.sharded import ShardedSpec
-    from repro.core.driver import WorkloadSpec as JSpec
     from repro.serve.protocol import ServeSpec, TenantSpec
     from repro.stream.protocol import StreamSpec
     from repro.stream.updates import UniformChurn
+    import repro_torch.core.exec as exec_pkg
+    from repro_torch.core.exec import scheduler
+    from repro_torch.core.exec.sharded import ShardedSpec
 
-    exp = Experiment(kernels=["pgd"], datasets=["tiny"], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        exp.run(workers=2)
     cases = [
         (StreamSpec("pgd", "tiny", UniformChurn(), epochs=2), "item 5"),
         (ServeSpec(tenants=(TenantSpec("pgd", "tiny"),)), "item 6"),
-        (ShardedSpec(JSpec("bfs", "tiny")), "item 4"),
     ]
     for spec, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             Experiment(workloads=[WorkloadSpec("pgd", "tiny"), spec], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        from repro_torch.core.exec import scheduler  # noqa: F401
+    # the scheduler and sharded specs are ported
+    sharded = ShardedSpec(WorkloadSpec("bfs", "tiny"))
+    exp = Experiment(workloads=[WorkloadSpec("pgd", "tiny"), sharded], device="cpu")
+    assert exp.workload_specs[1] is sharded
+    assert exec_pkg.run_grid is scheduler.run_grid
+    assert exec_pkg.SchedDecision is scheduler.SchedDecision
 
 
 def test_experiment_needs_the_card_unless_cpu_is_asked(monkeypatch):

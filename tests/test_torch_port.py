@@ -116,6 +116,8 @@ def _imported_modules(path: Path):
 def test_port_never_imports_jax_or_repro():
     files = _port_sources()
     assert len(files) > 20
+    port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files[:-1]}
+    assert {"memsim/streaming.py", "core/exec/sharded.py", "core/exec/scheduler.py"} <= port
     bad = []
     for path in files:
         for mod in _imported_modules(path):
