@@ -34,8 +34,8 @@ Phases (any failure exits non-zero; each prints its seconds):
 4. Main path B: the same for pgd/google under ``PAPER`` (the paper's Table
    VI hierarchy; 20.6 M accesses).  Both phases must reproduce the JAX
    package's golden rows (``tests/data/torch_port_golden.json``) exactly.
-5. K2 on the first 2,000,000 accesses of B's demand stream, cold and
-   resumed at access 1,000,000, against its plain version.
+5. K2 on the first 1,000,000 accesses of B's demand stream, cold and
+   resumed at access 500,000, against its plain version.
 6. At B's shapes (its whole demand stream for K2, the largest of its K1
    launches for K1, its push edge order for the segment sum), hold each
    kernel against its plain version once more, bit for bit, and time it
@@ -106,14 +106,33 @@ Phases (any failure exits non-zero; each prints its seconds):
     ``run(workers=None)`` warm (its ``sched`` printed), both equal to the
     golden rows, and the mixed grid (bfs/comdblp#s0 beside its
     ``ShardedSpec`` at 4096) under 2 and 1 workers; then the seconds to
-    start a pool of 1, 2 and 4 workers (import, CUDA context, kernels) and
+    start a pool of 1 and 2 workers (import, CUDA context, kernels) and
     the card's memory a context takes.  Prints the cost model's constants
     from this run.
+15. The stream and serve protocols through ``repro_torch.core.Experiment``,
+    each cell from a fresh artifact root: ST-drift (``StreamSpec`` of
+    pgd/comdblp, ``SlidingWindow()``, 6 epochs, ``persist`` and ``reset``,
+    ``amc``, ``vldp``, ``nextline2``), serially and under ``workers=2``,
+    whose merged drift document (as ``examples/streaming_drift.py
+    --verify-parallel`` writes it) must equal
+    ``results/drift_pgd_comdblp_sliding_window.json``; SV-contention
+    (``ServeSpec`` of pgd#s0, cc#s0, pgd#s1 on comdblp, both table modes,
+    the same prefetchers), serially and under ``workers=2``, whose
+    contention document must equal ``results/contention_comdblp_k3.json``;
+    ST-full (bfs/google, ``PAPER``, 4 epochs), SV-full (bfs#s0-s2 on
+    google, ``PAPER``), ST-models (every churn model and lifecycle) and
+    SV-rate (the ``rate`` policy), whose rows and ``trace_reuse`` must
+    equal ``tests/data/torch_port_golden_stream_serve.json`` (written from
+    the JAX package); and the zero-churn stream's ``trace_reuse``, 2 cold
+    and 3 warm.  Each cell prints its seconds, its stream and serve stages
+    (``update_apply``, ``trace_epoch``, ``table_carry``,
+    ``serve_interleave``, ``serve_llc``, ``serve_score``), the K1 launches
+    inside the shared-LLC pass and the card's peak allocation.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
 bfs_do, the gather demo, K3 on D's entries, E, the reduced LMs, F's
 prefill, serve loop and float32 cross-check, each cell of phase 13 and
-each run of phase 14) and read just after; each
+each run of phases 14 and 15) and read just after; each
 kernel must have launched on the paths that run it, and the ``launches``
 of the kernels line are the sums over those paths.  Prints the card's
 name and power limit first, a ``{"kernels": ...}`` line, and as the last
@@ -137,6 +156,9 @@ GOLDEN_EVOLVING = ROOT / "tests" / "data" / "torch_port_golden_evolving.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_port_golden_lm.json"
 GOLDEN_GRID = ROOT / "tests" / "data" / "torch_port_golden_grid.json"
 GOLDEN_SHARDED = ROOT / "tests" / "data" / "torch_port_golden_sharded.json"
+GOLDEN_STREAM_SERVE = ROOT / "tests" / "data" / "torch_port_golden_stream_serve.json"
+RESULTS = (ROOT / "results" / "drift_pgd_comdblp_sliding_window.json",
+           ROOT / "results" / "contention_comdblp_k3.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak (NVIDIA data sheet)
 FADD_CYCLES = 4  # latency of a dependent float32 add on an SM (Hopper)
@@ -2059,7 +2081,7 @@ def _warm_worker(device: str, barrier: str, n: int):
 
 
 def spawn_times(dev, root: Path) -> dict:
-    """Seconds until a spawned pool of P workers (P = 1, 2, 4) has every
+    """Seconds until a spawned pool of P workers (P = 1, 2) has every
     worker started as the scheduler's workers start (``_spawn_pool``), and
     the card's free memory each worker's context takes; fits t(P) = base +
     P x per_worker."""
@@ -2070,7 +2092,7 @@ def spawn_times(dev, root: Path) -> dict:
     from repro_torch.core.exec import scheduler
 
     out = {}
-    for n in (1, 2, 4):
+    for n in (1, 2):
         barrier = root / f"barrier{n}"
         barrier.mkdir(parents=True)
         free0 = torch.cuda.mem_get_info(dev)[0]
@@ -2189,6 +2211,270 @@ def phase14(gold: dict, grid: dict, dev, run_path, calib: dict):
     log(f"  phase 14 seconds {time.perf_counter() - t0:.1f}")
 
 
+# ------------------------------------------------------------ phase 15
+STAGES_15 = ("update_apply", "trace_epoch", "table_carry",
+             "serve_interleave", "serve_llc", "serve_score")
+DRIFT = dict(kernel="pgd", dataset="comdblp", epochs=6, policies=("persist", "reset"),
+             prefetchers=["amc", "vldp", "nextline2"])
+CONTENTION = dict(tenants=[("pgd", "comdblp", 0), ("cc", "comdblp", 0), ("pgd", "comdblp", 1)],
+                  prefetchers=["amc", "vldp", "nextline2"])
+
+
+def cell_workloads(cell: dict) -> list:
+    """The stream or serve specs of a cell of
+    ``tests/data/torch_port_golden_stream_serve.json`` (its declaration:
+    StreamSpec fields with the churn as ``[kind, parameters]``, or ServeSpec
+    fields with TenantSpec fields for the tenants; hierarchies by name)."""
+    from repro_torch import memsim
+    from repro_torch.serve import ServeSpec, TenantSpec
+    from repro_torch.stream import CHURN_MODELS, StreamSpec
+
+    if "serve" in cell:
+        sv = cell["serve"]
+        return [ServeSpec(tenants=tuple(TenantSpec(**t) for t in sv["tenants"]),
+                          policy=sv["policy"], table_modes=tuple(sv["table_modes"]),
+                          hierarchy=getattr(memsim, sv["hierarchy"]))]
+    specs = []
+    for st in cell["streams"]:
+        kind, params = st["churn"]
+        fields = {k: v for k, v in st.items() if k not in ("churn", "hierarchy")}
+        specs.append(StreamSpec(churn=CHURN_MODELS[kind](**params),
+                                hierarchy=getattr(memsim, st["hierarchy"]), **fields))
+    return specs
+
+
+def drift_document(result, streams, policies, parity=None) -> dict:
+    """The drift JSON of ``examples/streaming_drift.py`` from a stream
+    run's cells: one ``drift_payload`` per policy merged into one document,
+    AMC keyed per policy, stateless baselines once."""
+    from repro_torch.stream import drift_payload
+
+    merged = None
+    for spec in streams:
+        epoch_set = set(spec.epoch_specs())
+        seen, cells = set(), []
+        for c in result.cells:
+            if c.epoch is None or c.spec not in epoch_set:
+                continue
+            if c.lifecycle is not None and c.lifecycle != spec.lifecycle:
+                continue  # another policy's lifecycle-carried cells
+            key = (c.prefetcher, c.epoch)
+            if key in seen:
+                continue  # stateless baseline, already scored identically
+            seen.add(key)
+            cells.append(c)
+        doc = drift_payload(spec, spec.sequence(), cells)
+        if merged is None:
+            merged = {**doc, "lifecycle": ",".join(policies), "prefetchers": {}}
+        for name, pf in doc["prefetchers"].items():
+            key = f"{name}[{pf['lifecycle']}]" if pf["lifecycle"] else name
+            merged["prefetchers"][key] = pf
+    if parity is not None:
+        merged["parallel_matches_serial"] = parity
+    return merged
+
+
+def contention_document(result, spec, parity=None) -> dict:
+    """The contention JSON of ``examples/serving_contention.py`` from a
+    serve run's cells."""
+    from repro_torch.serve import ServeCell, contention_payload
+
+    wspecs = spec.tenant_workloads()
+    cells = [ServeCell(tenant=c.tenant, prefetcher=c.prefetcher, table_mode=c.table_mode,
+                       metrics=c.metrics, spec=wspecs[c.tenant]) for c in result.cells]
+    doc = contention_payload(spec, cells)
+    if parity is not None:
+        doc["parallel_matches_serial"] = parity
+    return doc
+
+
+class SharedLlcClock:
+    """Seconds and K1 launches of the serving protocol's shared-LLC work,
+    by part: ``_share_llc`` in all (merge keys from the interleave, the
+    patched outcomes), of it ``shared_llc_pass`` (shift, concatenate,
+    stable argsort, scatter back), of that ``cache_pass`` (K1 with its
+    group-by-set and copies).  Wraps the three names where they are looked
+    up while it is entered."""
+
+    def __init__(self):
+        self.launches, self.share_s, self.pass_s, self.k1_s = 0, 0.0, 0.0, 0.0
+
+    def _timed(self, fn, field, count=False):
+        from repro_torch.kernels.cache_sim.ops import lru_hits
+
+        def wrapped(*args, **kw):
+            n0, t0 = lru_hits.launches, time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                setattr(self, field, getattr(self, field) + time.perf_counter() - t0)
+                if count:
+                    self.launches += lru_hits.launches - n0
+        return wrapped
+
+    def __enter__(self):
+        from repro_torch.memsim import shared_llc
+        from repro_torch.serve import protocol
+
+        self._saved = (protocol._share_llc, protocol.shared_llc_pass, shared_llc.cache_pass)
+        protocol._share_llc = self._timed(protocol._share_llc, "share_s")
+        protocol.shared_llc_pass = self._timed(protocol.shared_llc_pass, "pass_s")
+        shared_llc.cache_pass = self._timed(shared_llc.cache_pass, "k1_s", count=True)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.memsim import shared_llc
+        from repro_torch.serve import protocol
+
+        protocol._share_llc, protocol.shared_llc_pass, shared_llc.cache_pass = self._saved
+
+    def snapshot(self):
+        return (self.launches, self.share_s, self.pass_s, self.k1_s)
+
+
+def protocol_cell(name: str, specs, prefetchers, dev, root: Path, workers=1, llc=None):
+    """Run stream / serve ``specs`` through ``repro_torch.core.Experiment``
+    on ``dev`` from the artifact root ``root``; log the host seconds, the
+    stream and serve stages, the artifact spans, the shared-LLC parts (from
+    the entered :class:`SharedLlcClock` ``llc``) and the card's peak
+    allocation.  Returns the ``ExperimentResult``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ArtifactCache, Experiment, WorkloadCache
+    from repro_torch.core.exec import collect_stages
+    from repro_torch.core.obs import trace
+
+    if dev.type == "cuda":
+        torch.empty(0, device=dev)  # the allocator's stats need a context
+        torch.cuda.reset_peak_memory_stats(dev)
+    llc0 = llc.snapshot() if llc is not None else None
+    cache = WorkloadCache(artifacts=ArtifactCache(root))
+    t0 = time.perf_counter()
+    with collect_stages() as stages, trace() as tracer:
+        res = Experiment(workloads=specs, prefetchers=prefetchers, cache=cache,
+                         device=dev).run(workers=workers)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    rows = res.rows()
+    check(len(rows) > 0 and all(np.isfinite(v) for r in rows for v in r.values()
+                                if isinstance(v, float)), f"{name}: no rows or a non-finite metric")
+    log(f"  {name}: {len(rows)} rows in {secs:.2f} s (workers={workers}); trace_reuse "
+        f"{res.trace_reuse}; workload cache " + json.dumps(res.telemetry["workload_cache"]))
+    log("  stage seconds " + json.dumps({k: round(stages.get(k, 0.0), 4) for k in STAGES_15}
+                                        | {k: round(stages[k], 4) for k in ("trace_gen",
+                                                                            "demand_sim", "score")
+                                           if k in stages}))
+    totals = tracer.result.stage_totals()
+    log("  span seconds " + json.dumps({k: round(totals[k], 4) for k in
+                                        ("artifact_save", "artifact_load") if k in totals}))
+    if llc is not None and "serve_llc" in stages:
+        n, share, pss, k1 = (b - a for a, b in zip(llc0, llc.snapshot()))
+        log(f"  shared LLC: {n} K1 launches; seconds _share_llc {share:.4f} (merge keys and "
+            f"patching {share - pss:.4f}; shared_llc_pass {pss:.4f}: its host merge "
+            f"{pss - k1:.4f}, cache_pass {k1:.4f})")
+    log(f"  torch.cuda.max_memory_allocated {peak:,} B")
+    res.seconds, res.stage_seconds = secs, dict(stages)
+    return res
+
+
+def phase15(gold: dict, dev, run_path):
+    """Stream and serve protocols through ``Experiment`` on the card, each
+    cell from a fresh artifact root: ST-drift and SV-contention against the
+    committed ``results/`` documents (each then under ``workers=2``, whose
+    rows must equal the serial rows), ST-full, SV-full, ST-models and
+    SV-rate against ``tests/data/torch_port_golden_stream_serve.json``, and
+    the zero-churn stream's ``trace_reuse`` cold and warm."""
+    import tempfile
+
+    from repro_torch.core.exec.scheduler import rows_equal
+    from repro_torch.serve import ServeSpec, TenantSpec
+    from repro_torch.stream import SlidingWindow, StreamSpec
+
+    t0 = time.perf_counter()
+    graph = ("lru_hits", "fused_levels", "segment_sum")
+    scored_only = dict(fused_levels=0, segment_sum=0)  # builds ran in the workers
+    with SharedLlcClock() as llc:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_phase15_") as tmp:
+            tmp = Path(tmp)
+            streams = [StreamSpec(DRIFT["kernel"], DRIFT["dataset"], SlidingWindow(),
+                                  epochs=DRIFT["epochs"], lifecycle=p, seed=0)
+                       for p in DRIFT["policies"]]
+            runs = {w: run_path(f"ST-drift workers={w}", graph if w == 1 else ("lru_hits",),
+                                lambda: protocol_cell(f"ST-drift (workers={w})", streams,
+                                                      DRIFT["prefetchers"], dev,
+                                                      tmp / f"drift{w}", workers=w),
+                                exact=None if w == 1 else scored_only)
+                    for w in (1, 2)}
+            parity = rows_equal(runs[1].rows(), runs[2].rows())
+            check(parity and runs[1].trace_reuse == runs[2].trace_reuse,
+                  "ST-drift: workers=2 rows or trace_reuse differ from serial")
+            doc = jsonable(drift_document(runs[1], streams, DRIFT["policies"], parity))
+            want = json.loads((ROOT / "results" / "drift_pgd_comdblp_sliding_window.json")
+                              .read_text())
+            check(doc == want, "ST-drift: the drift document differs from "
+                  "results/drift_pgd_comdblp_sliding_window.json")
+            log("  ST-drift: == results/drift_pgd_comdblp_sliding_window.json "
+                f"(parallel_matches_serial {parity})")
+            del runs
+
+            serve = ServeSpec(tenants=tuple(TenantSpec(k, d, seed=s)
+                                            for k, d, s in CONTENTION["tenants"]))
+            runs = {w: run_path(f"SV-contention workers={w}", graph if w == 1 else ("lru_hits",),
+                                lambda: protocol_cell(f"SV-contention (workers={w})", [serve],
+                                                      CONTENTION["prefetchers"], dev,
+                                                      tmp / f"contention{w}", workers=w,
+                                                      llc=llc),
+                                exact=None if w == 1 else scored_only)
+                    for w in (1, 2)}
+            check(rows_equal(runs[1].rows(), runs[2].rows()),
+                  "SV-contention: workers=2 rows differ from serial")
+            doc = jsonable(contention_document(runs[1], serve))
+            want = json.loads((ROOT / "results" / "contention_comdblp_k3.json").read_text())
+            check(doc == want, "SV-contention: the contention document differs from "
+                  "results/contention_comdblp_k3.json")
+            log("  SV-contention: == results/contention_comdblp_k3.json; workers=2 == serial")
+            del runs
+
+            for name in ("ST-full", "SV-full", "ST-models", "SV-rate"):
+                cell = gold["cells"][name]
+                expect = ("lru_hits", "fused_levels") + (
+                    ("segment_sum",) if any(s.get("kernel", "") == "pgd" for s in
+                                            cell.get("streams", []) + cell.get("serve", {})
+                                            .get("tenants", [])) else ())
+                res = run_path(name, expect, lambda: protocol_cell(
+                    name, cell_workloads(cell), cell["prefetchers"], dev, tmp / name, llc=llc))
+                rows = jsonable(res.rows())
+                check(len(rows) == len(cell["rows"]),
+                      f"{name}: {len(rows)} rows, golden {len(cell['rows'])}")
+                for got, want in zip(rows, cell["rows"]):
+                    if got != want:
+                        diff = {k: (got.get(k), want.get(k)) for k in want
+                                if got.get(k) != want.get(k)}
+                        raise SmokeError(f"{name}: row {want['kernel']}#s{want['seed']}/"
+                                         f"{want['prefetcher']} differs from golden: {diff}")
+                check(res.trace_reuse == cell["trace_reuse"],
+                      f"{name}: trace_reuse {res.trace_reuse}, golden {cell['trace_reuse']}")
+                log(f"  {name}: {len(rows)} rows == golden")
+                del res
+
+            cell = gold["cells"]["zero-churn"]
+            got = [run_path(f"zero-churn {w}", graph if w == "cold" else ("lru_hits",),
+                            lambda: protocol_cell(f"zero-churn ({w})", cell_workloads(cell),
+                                                  cell["prefetchers"], dev, tmp / "zero"),
+                            exact=None if w == "cold" else scored_only)
+                   for w in ("cold", "warm")]
+            reuse = [r.trace_reuse for r in got]
+            check(reuse == [cell["trace_reuse_cold"], cell["trace_reuse_warm"]] == [2, 3],
+                  f"zero-churn: trace_reuse cold and warm {reuse}, expected 2 and 3")
+            check(all(jsonable(r.rows()) == cell["rows"] for r in got),
+                  "zero-churn: rows differ from golden")
+            log("  zero-churn: trace_reuse 2 cold, 3 warm; rows == golden")
+    log(f"  K1 launches inside the shared-LLC passes of phase 15: {llc.launches}")
+    log(f"  phase 15 seconds {time.perf_counter() - t0:.1f}")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2236,9 +2522,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch").is_dir() or not all(
-            g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM, GOLDEN_GRID, GOLDEN_SHARDED)):
+            g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM, GOLDEN_GRID, GOLDEN_SHARDED,
+                                 GOLDEN_STREAM_SERVE) + RESULTS):
         print("chip_smoke: run from a checkout of the repository "
-              "(src/repro_torch and tests/data are missing)", file=sys.stderr)
+              "(src/repro_torch, tests/data and results are missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
@@ -2349,10 +2636,10 @@ def main() -> int:
     finally:
         engine.lru_hits = lru_hits
 
-    phase("phase 5: K2 on B's first 2,000,000 accesses, cold and resumed at 1,000,000")
+    phase("phase 5: K2 on B's first 1,000,000 accesses, cold and resumed at 500,000")
     from repro_torch.memsim.hierarchy import _demand_levels
 
-    e = k2_resume(wl_b.block[:2_000_000], 1_000_000, _demand_levels(wl_b.profile.cfg), dev)
+    e = k2_resume(wl_b.block[:1_000_000], 500_000, _demand_levels(wl_b.profile.cfg), dev)
     errs["fused_levels"] = max(errs["fused_levels"], e)
     log("  K2 == plain, cold and resumed")
 
@@ -2408,6 +2695,11 @@ def main() -> int:
           "the fused and set_parallel engines, S-full (bfs/road-8m at 4,194,304-access shards), "
           "the scheduler's pool (G under workers=2 and None, the mixed grid), spawn timing")
     phase14(json.loads(GOLDEN_SHARDED.read_text()), grid, dev, run_path, calib)
+
+    phase("phase 15: stream and serve protocols through Experiment: ST-drift and SV-contention "
+          "against results/, ST-full, SV-full, ST-models, SV-rate against the golden record, "
+          "the zero-churn reuse counts")
+    phase15(json.loads(GOLDEN_STREAM_SERVE.read_text()), dev, run_path)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["name"] in route_totals:

@@ -23,8 +23,9 @@ Subpackages:
                   paper-scale traces and the stage timers
   obs          -- spans, the metrics registry and run manifests
 
-Not yet ported (each raises ``NotImplementedError`` naming its item of
-ROADMAP queue 1): stream specs (item 5) and serve specs (item 6).
+``Experiment(workloads=[...])`` also takes the evolving-graph streams of
+:mod:`repro_torch.stream` (``StreamSpec``) and the multi-tenant serving
+scenarios of :mod:`repro_torch.serve` (``ServeSpec``).
 """
 from repro_torch.core.driver import WorkloadSpec, WorkloadTrace, build_workload
 from repro_torch.core.exec.artifacts import ArtifactCache

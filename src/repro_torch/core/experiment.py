@@ -28,9 +28,12 @@ issuer X against the baseline run.
 (:mod:`repro_torch.core.exec.scheduler`), each worker on the same device;
 ``run()`` asks the scheduler's cost model whether a pool pays.  A
 :class:`~repro_torch.core.exec.sharded.ShardedSpec` workload is scored
-from its on-disk shard store with bounded memory.  Not yet ported, each
-raising ``NotImplementedError`` that names its ROADMAP queue 1 item:
-stream specs (item 5) and serve specs (item 6).
+from its on-disk shard store with bounded memory.  A
+:class:`~repro_torch.stream.protocol.StreamSpec` (an evolving graph over E
+versions, AMC's tables carried across them) and a
+:class:`~repro_torch.serve.protocol.ServeSpec` (K tenants on one shared
+LLC) expand into per-epoch / per-tenant traces, built like any workload
+(across the pool under ``workers=N``) and scored in this process.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import json
 import os
 import pickle
 import time
-from collections.abc import Mapping
+from collections.abc import Mapping, Sequence as _SequenceABC
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,13 +63,6 @@ from repro_torch.memsim import (
     simulate_with_prefetch,
     simulate_with_prefetch_batch,
 )
-
-# What the port does not run yet, by the ROADMAP item that ports it.
-_NOT_PORTED = (
-    ("is_stream", "stream specs", "the stream protocol (ROADMAP queue 1 item 5)"),
-    ("is_serve", "serve specs", "the serving protocol (ROADMAP queue 1 item 6)"),
-)
-
 
 def _composite_stream(workload: WorkloadTrace, stream):
     """Next-line (issuer 0) + the evaluated prefetcher (issuer 1)."""
@@ -292,11 +288,39 @@ class _LazyWorkloads(Mapping):
         return len(self._specs)
 
 
+class _PipelinedTraces(_SequenceABC):
+    """Sequence view over a stream's epoch traces that blocks on each
+    epoch's *background build* on first access, then loads it through the
+    workload cache on ``device`` — the handoff between the spawn pool and
+    the in-parent lifecycle scorer.  Indexing epoch 0 does not wait for
+    epochs 1..E, so scoring overlaps the remaining builds."""
+
+    def __init__(self, pipeline, specs, cache: "WorkloadCache", device):
+        self._pipeline = pipeline
+        self._specs = list(specs)
+        self._cache = cache
+        self._device = device
+
+    def __len__(self) -> int:
+        return len(self._specs)
+
+    def __getitem__(self, i: int) -> WorkloadTrace:
+        spec = self._specs[i]  # IndexError here ends Sequence iteration
+        self._pipeline.wait(spec)
+        return self._cache.get_or_build(spec, device=self._device)
+
+
 @dataclasses.dataclass(frozen=True)
 class CellResult:
-    """One grid cell: a prefetcher scored on one workload.  (The JAX
-    package's stream and serving cells add epoch and tenant fields; they
-    come with those protocols, ROADMAP queue 1 items 5 and 6.)"""
+    """One grid cell: a prefetcher scored on one workload.
+
+    Stream cells (from a :class:`repro_torch.stream.protocol.StreamSpec`
+    workload) additionally carry the epoch index and, for lifecycle-aware
+    prefetchers, the table-lifecycle policy; serving cells (from a
+    :class:`repro_torch.serve.protocol.ServeSpec`) carry the tenant index
+    and, for AMC-family prefetchers, the table mode.  All stay ``None`` for
+    plain workload cells, whose row schema is unchanged.
+    """
 
     kernel: str
     dataset: str
@@ -304,6 +328,10 @@ class CellResult:
     seed: int
     metrics: PrefetchMetrics
     spec: Optional[WorkloadSpec] = None  # full workload identity
+    epoch: Optional[int] = None  # stream cells only
+    lifecycle: Optional[str] = None  # stream cells with carried tables
+    tenant: Optional[int] = None  # serving cells only
+    table_mode: Optional[str] = None  # serving cells, AMC family
 
 
 @dataclasses.dataclass
@@ -324,6 +352,9 @@ class ExperimentResult:
     # ``run(workers=None)`` consulted its cost model; None when the caller
     # fixed ``workers``.
     sched: Optional[dict] = None
+    # Epoch traces served from the content-addressed cache instead of
+    # being re-emitted (delta-aware reuse; counts stream epochs only).
+    trace_reuse: int = 0
     # Run telemetry: the run manifest (git sha, engine, emitter, schema
     # versions, torch version, device name), workload-cache counters, and
     # — when a tracer was active — the trace id.
@@ -364,18 +395,30 @@ class ExperimentResult:
         return out
 
     def rows(self) -> List[dict]:
-        """Tidy per-cell rows: grid coordinates + flattened metrics (the
-        JAX package's schema for plain cells)."""
-        return [
-            dict(
+        """Tidy per-cell rows: grid coordinates + flattened metrics, the
+        JAX package's schema.
+
+        Stream cells gain ``epoch`` (and ``lifecycle``) columns; serving
+        cells gain ``tenant`` (and ``table_mode``); plain cells keep the
+        plain schema.
+        """
+        out = []
+        for c in self.cells:
+            row = dict(
                 kernel=c.kernel,
                 dataset=c.dataset,
                 prefetcher=c.prefetcher,
                 seed=c.seed,
-                **c.metrics.row(),
             )
-            for c in self.cells
-        ]
+            if c.epoch is not None:
+                row["epoch"] = c.epoch
+                row["lifecycle"] = c.lifecycle
+            if c.tenant is not None:
+                row["tenant"] = c.tenant
+                row["table_mode"] = c.table_mode
+            row.update(c.metrics.row())
+            out.append(row)
+        return out
 
     def workload(self, kernel: str, dataset: str, seed: int = 0) -> WorkloadTrace:
         """The unique built trace for (kernel, dataset, seed); with several
@@ -403,10 +446,10 @@ class Experiment:
     :func:`repro_torch.core.registry.resolve_prefetchers`.  Every workload
     is built, and scored, on ``device`` (default the CUDA card; a run with
     no card raises), in this process or in the scheduler's workers.
-    ``workloads`` may mix plain specs and
-    :class:`~repro_torch.core.exec.sharded.ShardedSpec` ones; stream and
-    serve specs raise ``NotImplementedError`` naming the ROADMAP item that
-    ports them.
+    ``workloads`` may mix plain specs,
+    :class:`~repro_torch.core.exec.sharded.ShardedSpec`,
+    :class:`~repro_torch.stream.protocol.StreamSpec` and
+    :class:`~repro_torch.serve.protocol.ServeSpec` ones.
     """
 
     def __init__(
@@ -428,14 +471,27 @@ class Experiment:
                     "hierarchy=/seeds= apply to the kernels=+datasets= grid; "
                     "with workloads=, declare them on each WorkloadSpec"
                 )
-            for w in workloads:
-                for flag, what, port in _NOT_PORTED:
-                    if getattr(w, flag, False):
-                        raise NotImplementedError(
-                            f"{what} are not ported yet: they need {port}"
-                        )
-            self.workload_specs = list(workloads)
+            # Multi-epoch stream scenarios (repro_torch.stream.protocol.
+            # StreamSpec) and multi-tenant serving scenarios (repro_torch.
+            # serve.protocol.ServeSpec) mix freely with plain workloads;
+            # they expand into per-epoch / per-tenant workload specs at run
+            # time and score through their protocol modules (duck-typed so
+            # those modules load lazily).
+            self.stream_specs = [
+                w for w in workloads if getattr(w, "is_stream", False)
+            ]
+            self.serve_specs = [
+                w for w in workloads if getattr(w, "is_serve", False)
+            ]
+            self.workload_specs = [
+                w
+                for w in workloads
+                if not getattr(w, "is_stream", False)
+                and not getattr(w, "is_serve", False)
+            ]
         else:
+            self.stream_specs = []
+            self.serve_specs = []
             if not kernels or not datasets:
                 raise ValueError("kernels= and datasets= must both be non-empty")
             self.workload_specs = [
@@ -445,7 +501,7 @@ class Experiment:
                 for s in seeds
             ]
         # Fail fast on typo'd names at declaration time, not first build.
-        for spec in self.workload_specs:
+        for spec in self.workload_specs + self.stream_specs + self.serve_specs:
             spec.validate_names()
         self.prefetchers: List[Tuple[str, Prefetcher]] = resolve_prefetchers(
             prefetchers
@@ -491,10 +547,25 @@ class Experiment:
         dispatched as their builds complete) over the phased
         materialize-all-then-score-all schedule; both are bit-identical to
         serial.  Cell order and every metric equal the JAX package's.
+
+        Stream workloads expand into per-epoch traces (built/cached like
+        any workload — under ``workers=N`` the epochs of every stream are
+        materialized across the pool and handed to the scorer as each
+        build lands) and are scored *in this process* by the stream
+        protocol, whose cross-epoch table lifecycle is inherently
+        sequential; stream results are therefore byte-identical between
+        serial and parallel runs too.  Serving workloads follow the same
+        contract: per-tenant traces materialize across the pool, the
+        interleaved shared-LLC scoring runs here.  Epoch traces are
+        content-keyed, so epochs whose graph the churn model left unchanged
+        are *reused* rather than re-emitted (``result.trace_reuse`` counts
+        them).
         """
         with obs.span(
             "experiment_run",
             workloads=len(self.workload_specs),
+            streams=len(self.stream_specs),
+            serves=len(self.serve_specs),
             prefetchers=self.prefetcher_names,
         ):
             result = self._run_impl(verbose, workers, pipeline)
@@ -526,7 +597,14 @@ class Experiment:
             record(f"sched_decision[{sched.mode}]")
             workers = sched.workers
         if workers > 1:
-            result = self._run_parallel(workers, verbose, pipeline)
+            if self.workload_specs:
+                result = self._run_parallel(workers, verbose, pipeline)
+            else:  # stream/serve-only grid: no cells to shard, only builds
+                result = ExperimentResult(cells=[], workloads={})
+            if self.stream_specs:
+                self._append_stream_cells(result, verbose, workers=workers)
+            if self.serve_specs:
+                self._append_serve_cells(result, verbose, workers=workers)
             result.sched = sched.as_dict() if sched is not None else None
             return result
         cells: List[CellResult] = []
@@ -559,13 +637,18 @@ class Experiment:
             for name, m in zip(self.prefetcher_names, metrics):
                 cells.append(self._cell(spec, name, m, verbose))
         result = ExperimentResult(cells=cells, workloads=traces)
+        if self.stream_specs:
+            self._append_stream_cells(result, verbose, workers=None)
+        if self.serve_specs:
+            self._append_serve_cells(result, verbose, workers=None)
         result.sched = sched.as_dict() if sched is not None else None
         return result
 
     def _plan_schedule(self):
         """Resolve ``workers=None`` through the scheduler's cost model.
 
-        Every workload is costed against the artifact store;
+        Every independent build in the run — plain workloads, stream
+        epochs, serve tenants — is costed against the artifact store;
         :func:`repro_torch.core.exec.scheduler.plan_execution` then picks
         serial in-process execution or a pipelined pool sized from the
         predicted makespan, the host's cores and memory and, on a card,
@@ -591,15 +674,169 @@ class Experiment:
                 n_tasks=0,
                 measured_frac=0.0,
             )
+        specs = list(self.workload_specs)
+        for s in self.stream_specs:
+            specs.extend(s.epoch_specs())
+        for s in self.serve_specs:
+            specs.extend(s.tenant_workloads())
         artifacts = (
             self.cache.artifacts
             if self.cache.artifacts is not None
             else ArtifactCache()
         )
         return scheduler.plan_execution(
-            self.workload_specs, len(self.prefetchers), artifacts,
-            device=self.device,
+            specs, len(self.prefetchers), artifacts, device=self.device
         )
+
+    def _append_stream_cells(
+        self, result: ExperimentResult, verbose: bool, workers: Optional[int]
+    ) -> None:
+        """Score every stream scenario and fold its per-epoch cells in.
+
+        Parallel runs hand epochs off as they materialize: the lifecycle
+        scorer starts on epoch 0 while later epochs are still building in
+        the pool (:class:`~repro_torch.core.exec.scheduler.MaterializePipeline`
+        + :class:`_PipelinedTraces`), instead of waiting for all builds.
+        Either path counts delta-aware reuse — unique epoch specs whose
+        trace came from the content-addressed cache (or an in-memory
+        content alias) rather than a fresh emission — into
+        ``result.trace_reuse``; the count is identical serial vs pooled.
+        """
+        from repro_torch.stream import protocol  # lazy: the protocol imports us
+
+        dev = self.device
+        epoch_specs = {
+            es: None for spec in self.stream_specs for es in spec.epoch_specs()
+        }
+        builds_before = self.cache.builds
+        pipeline = None
+        if workers is not None and workers > 1:
+            # Epochs are independent *builds*: fan them across the pool,
+            # then walk the lifecycle sequentially here, pulling each epoch
+            # as its build lands.
+            from repro_torch.core.exec import scheduler
+
+            if self.cache.artifacts is None:
+                self.cache.artifacts = ArtifactCache()
+            pipeline = scheduler.MaterializePipeline(
+                list(epoch_specs),
+                workers=workers,
+                artifacts=self.cache.artifacts,
+                device=dev,
+            )
+        try:
+            for spec in self.stream_specs:
+                if pipeline is not None:
+                    traces: Sequence = _PipelinedTraces(
+                        pipeline, spec.epoch_specs(), self.cache, dev
+                    )
+                else:
+                    traces = [
+                        self.cache.get_or_build(es, device=dev)
+                        for es in spec.epoch_specs()
+                    ]
+                for cell in protocol.score_stream(spec, self.prefetchers, traces):
+                    result.cells.append(
+                        CellResult(
+                            kernel=spec.kernel,
+                            dataset=spec.dataset,
+                            prefetcher=cell.prefetcher,
+                            seed=spec.seed,
+                            metrics=cell.metrics,
+                            spec=cell.spec,
+                            epoch=cell.epoch,
+                            lifecycle=cell.lifecycle,
+                        )
+                    )
+                    if verbose:
+                        m = cell.metrics
+                        print(
+                            f"[{spec.kernel}/{spec.dataset}@e{cell.epoch}] "
+                            f"{cell.prefetcher}: speedup {m.speedup:.2f} "
+                            f"coverage {m.coverage:.2f} accuracy {m.accuracy:.2f}"
+                        )
+        finally:
+            if pipeline is not None:
+                pipeline.close()
+        if pipeline is not None:
+            result.trace_reuse += pipeline.n_specs - pipeline.n_built
+        else:
+            result.trace_reuse += len(epoch_specs) - (
+                self.cache.builds - builds_before
+            )
+        load = lambda s: self.cache.get_or_build(s, device=dev)  # noqa: E731
+        if isinstance(result.workloads, dict):
+            for spec in self.stream_specs:
+                for es in spec.epoch_specs():
+                    result.workloads[es] = load(es)
+        else:
+            result.workloads = _LazyWorkloads(
+                load, list(result.workloads) + list(epoch_specs)
+            )
+
+    def _append_serve_cells(
+        self, result: ExperimentResult, verbose: bool, workers: Optional[int]
+    ) -> None:
+        """Score every serving scenario and fold its per-tenant cells in."""
+        from repro_torch.serve import protocol  # lazy: the protocol imports us
+
+        dev = self.device
+        tenant_specs = {
+            ws: None
+            for spec in self.serve_specs
+            for ws in spec.tenant_workloads()
+        }
+        if workers is not None and workers > 1:
+            # Tenants are independent *builds*: materialize them across
+            # the pool, then run the interleaved scoring here.
+            from repro_torch.core.exec import scheduler
+
+            if self.cache.artifacts is None:
+                self.cache.artifacts = ArtifactCache()
+            scheduler.materialize_specs(
+                list(tenant_specs),
+                workers=workers,
+                artifacts=self.cache.artifacts,
+                device=dev,
+            )
+        for spec in self.serve_specs:
+            traces = [
+                self.cache.get_or_build(ws, device=dev)
+                for ws in spec.tenant_workloads()
+            ]
+            for cell in protocol.score_serve(spec, self.prefetchers, traces):
+                ws = cell.spec
+                result.cells.append(
+                    CellResult(
+                        kernel=ws.kernel,
+                        dataset=ws.dataset,
+                        prefetcher=cell.prefetcher,
+                        seed=ws.seed,
+                        metrics=cell.metrics,
+                        spec=ws,
+                        tenant=cell.tenant,
+                        table_mode=cell.table_mode,
+                    )
+                )
+                if verbose:
+                    m = cell.metrics
+                    mode = cell.table_mode or "stateless"
+                    print(
+                        f"[{ws.kernel}/{ws.dataset}@t{cell.tenant}] "
+                        f"{cell.prefetcher}/{mode}: speedup {m.speedup:.2f} "
+                        f"coverage {m.coverage:.2f} accuracy {m.accuracy:.2f}"
+                    )
+        load = lambda s: self.cache.get_or_build(s, device=dev)  # noqa: E731
+        if isinstance(result.workloads, dict):
+            for ws in tenant_specs:
+                result.workloads[ws] = load(ws)
+        else:
+            known = set(result.workloads)
+            result.workloads = _LazyWorkloads(
+                load,
+                list(result.workloads)
+                + [ws for ws in tenant_specs if ws not in known],
+            )
 
     def _run_parallel(
         self, workers: int, verbose: bool, pipeline: bool = True

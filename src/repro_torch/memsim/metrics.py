@@ -132,11 +132,13 @@ def evaluate(
     base = profile.baseline_counts(t0)
     late_cost = _raw_late_cost(profile, t0, tm)
 
-    # Baseline-run cycles/misses (cached across the prefetchers sharing it).
-    key = ("basecycles", t0, tm, id(baseline_outcome))
-    cache = getattr(profile, "_timing_cache", None)
-    if cache is None:
-        cache = profile._timing_cache = {}
+    # Baseline-run cycles/misses, cached on the baseline outcome itself and
+    # so shared by the prefetchers scored against it.  (A key on the
+    # outcome's id() in a cache on the profile, as in the JAX package, can
+    # outlive the outcome: the serving protocol makes a short-lived
+    # contended baseline per scenario, and a later one may reuse the id.)
+    key = ("basecycles", t0, tm)
+    cache = baseline_outcome.__dict__.setdefault("_timing_cache", {})
     if key not in cache:
         meta_dram_b = baseline_outcome.metadata_bytes >> BLOCK_BITS
         cache[key] = _outcome_cycles(

@@ -1,5 +1,5 @@
 """Delta-CSR snapshots: apply update batches, yielding an epoch sequence
-(ported from ``repro.stream.snapshots``, numpy, without its stage timer).
+(ported from ``repro.stream.snapshots``; numpy on the host).
 
 ``snapshot_sequence`` turns (base graph, churn model, epochs, seed) into the
 epoch graphs ``g_0, g_1, …, g_{E-1}`` plus per-epoch churn statistics —
@@ -10,9 +10,9 @@ EvolvingGraphPair`.  Two construction paths:
   epoch with ``induced_subgraph`` on the *base* graph — the exact legacy
   §VI construction, so the E=2 uniform-churn sequence gives the masks and
   CSR arrays of ``make_evolving_pair``.
-- **Edge-stream models** start from the stream's epoch-0 edge set and fold
-  each :class:`DeltaBatch` in with :func:`apply_delta` (key-based
-  vectorized delete + concatenated insert).
+- **Edge-stream models** (sliding window, preferential growth) start from
+  the stream's epoch-0 edge set and fold each :class:`DeltaBatch` in with
+  :func:`apply_delta` (key-based vectorized delete + concatenated insert).
 
 Vertex ids are never compacted: all epochs share the base id space, so the
 property/frontier address layout — and therefore AMC's recorded
@@ -133,8 +133,11 @@ def snapshot_sequence(
 
     ``stream`` overrides the generated update stream (for caller-supplied
     update sequences); otherwise ``churn.generate(base, epochs, seed)``
-    produces it.
+    produces it.  Wrapped in the ``update_apply`` stage timer, so the
+    per-epoch graph construction cost shows in a stage breakdown.
     """
+    from repro_torch.core.exec.timers import stage
+
     if epochs < 1:
         raise ValueError(f"epochs must be >= 1, got {epochs}")
     if stream is None:
@@ -143,28 +146,29 @@ def snapshot_sequence(
         raise ValueError(
             f"update stream has {stream.num_epochs} epochs, expected {epochs}"
         )
-    if stream.masks is not None:
-        # Vertex churn: the legacy induced-subgraph construction (exact
-        # §VI arrays); the delta path is equivalent and test-asserted.
-        masks = [np.asarray(m) for m in stream.masks]
-        graphs = [
-            induced_subgraph(base, m, f"{base.name}@e{k}")
-            for k, m in enumerate(masks)
-        ]
-    else:
-        g = from_edges(
-            stream.init_src,
-            stream.init_dst,
-            base.num_vertices,
-            weights=stream.init_w,
-            dedup=True,
-            name=f"{base.name}@e0",
-        )
-        graphs = [g]
-        for k, batch in enumerate(stream.batches, start=1):
-            g = apply_delta(g, batch, name=f"{base.name}@e{k}")
-            graphs.append(g)
-        masks = [_active_mask(g) for g in graphs]
+    with stage("update_apply"):
+        if stream.masks is not None:
+            # Vertex churn: the legacy induced-subgraph construction (exact
+            # §VI arrays); the delta path is equivalent and test-asserted.
+            masks = [np.asarray(m) for m in stream.masks]
+            graphs = [
+                induced_subgraph(base, m, f"{base.name}@e{k}")
+                for k, m in enumerate(masks)
+            ]
+        else:
+            g = from_edges(
+                stream.init_src,
+                stream.init_dst,
+                base.num_vertices,
+                weights=stream.init_w,
+                dedup=True,
+                name=f"{base.name}@e0",
+            )
+            graphs = [g]
+            for k, batch in enumerate(stream.batches, start=1):
+                g = apply_delta(g, batch, name=f"{base.name}@e{k}")
+                graphs.append(g)
+            masks = [_active_mask(g) for g in graphs]
 
     stats: List[EpochStats] = []
     for k, g in enumerate(graphs):

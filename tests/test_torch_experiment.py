@@ -5,8 +5,8 @@ The reduced grid (cc and bellmanford#s0 on comdblp, scored with ``amc`` and
 ``rnr``) must give the JAX package's rows exactly.  The artifact cache is
 the port's own: its root and variable (``REPRO_TORCH_WORKLOAD_CACHE``) and a
 port marker in its key, so a directory the JAX package wrote is never read.
-What the slice does not port yet (the scheduler, stream and serve specs)
-raises ``NotImplementedError`` naming its ROADMAP item.
+Every kind of workload the JAX package's ``Experiment`` takes (plain,
+sharded, stream and serve specs) is ported and routed as it routes them.
 """
 import dataclasses
 import json
@@ -190,24 +190,22 @@ def test_stage_and_span_are_noops_with_nothing_active(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    from repro.serve.protocol import ServeSpec, TenantSpec
-    from repro.stream.protocol import StreamSpec
-    from repro.stream.updates import UniformChurn
+    # Nothing is left: stream and serve specs are routed beside plain and
+    # sharded ones, as the JAX package's Experiment routes them.
     import repro_torch.core.exec as exec_pkg
     from repro_torch.core.exec import scheduler
     from repro_torch.core.exec.sharded import ShardedSpec
+    from repro_torch.serve.protocol import ServeSpec, TenantSpec
+    from repro_torch.stream.protocol import StreamSpec
+    from repro_torch.stream.updates import UniformChurn
 
-    cases = [
-        (StreamSpec("pgd", "tiny", UniformChurn(), epochs=2), "item 5"),
-        (ServeSpec(tenants=(TenantSpec("pgd", "tiny"),)), "item 6"),
-    ]
-    for spec, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            Experiment(workloads=[WorkloadSpec("pgd", "tiny"), spec], device="cpu")
-    # the scheduler and sharded specs are ported
+    stream = StreamSpec("pgd", "tiny", UniformChurn(), epochs=2)
+    serve = ServeSpec(tenants=(TenantSpec("pgd", "tiny"),))
     sharded = ShardedSpec(WorkloadSpec("bfs", "tiny"))
-    exp = Experiment(workloads=[WorkloadSpec("pgd", "tiny"), sharded], device="cpu")
-    assert exp.workload_specs[1] is sharded
+    plain = WorkloadSpec("pgd", "tiny")
+    exp = Experiment(workloads=[plain, stream, sharded, serve], device="cpu")
+    assert exp.workload_specs == [plain, sharded]
+    assert exp.stream_specs == [stream] and exp.serve_specs == [serve]
     assert exec_pkg.run_grid is scheduler.run_grid
     assert exec_pkg.SchedDecision is scheduler.SchedDecision
 
