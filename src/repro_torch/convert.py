@@ -13,7 +13,7 @@ other where JAX is not installed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,7 +87,7 @@ def evolving_pair(base, run1, run2, mask1: np.ndarray, mask2: np.ndarray) -> Evo
     )
 
 
-def _leaf(tree: Dict[str, Any], name: str) -> np.ndarray:
+def _leaf(tree: Dict[str, Any], name: str):
     """The JAX pytree leaf of a port parameter name: ``blocks.<i>.a.b`` is
     ``tree["blocks"]["a"]["b"][i]`` (layers stacked on axis 0); any other
     ``a.b`` is ``tree["a"]["b"]``."""
@@ -96,26 +96,64 @@ def _leaf(tree: Dict[str, Any], name: str) -> np.ndarray:
         node = tree["blocks"]
         for key in parts[2:]:
             node = node[key]
-        return np.asarray(node)[int(parts[1])]
+        return node[int(parts[1])]
     node = tree
     for key in parts:
         node = node[key]
-    return np.asarray(node)
+    return node
+
+
+@torch.no_grad()
+def load_lm_tree(named: Mapping[str, torch.Tensor], tree: Dict[str, Any]) -> None:
+    """Copy a pytree of the JAX package's layout (numpy or tensor leaves)
+    into the tensors ``named`` like ``LM.named_parameters()`` (parameters,
+    or AdamW's ``m`` / ``v``), in place, each cast to its tensor's dtype;
+    numpy leaves go through float32."""
+    for name, p in named.items():
+        leaf = _leaf(tree, name)
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: tree leaf {tuple(leaf.shape)} != tensor {tuple(p.shape)}")
+        if not isinstance(leaf, torch.Tensor):
+            leaf = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        p.copy_(leaf)
 
 
 def lm_params_from_numpy(cfg, tree: Dict[str, Any], device: DeviceLike = None) -> LM:
     """The port's model holding a JAX parameter pytree with numpy leaves
     (``np.asarray`` of ``repro.models.init_params``'s), name for name, in
     ``cfg.param_dtype``."""
-    dev = resolve_device(device)
-    model = LM(cfg, device=dev)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = _leaf(tree, name)
-            if tuple(leaf.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: tree leaf {leaf.shape} != parameter {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(leaf, dtype=np.float32)).to(dev))
+    model = LM(cfg, device=resolve_device(device))
+    load_lm_tree(dict(model.named_parameters()), tree)
     return model
+
+
+def lm_tree_from_params(named: Union[LM, Mapping[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The JAX package's pytree layout of tensors named like
+    ``LM.named_parameters()`` (an ``LM``, or a dict of its parameters,
+    gradients or AdamW ``m`` / ``v``): nested dicts, the layers' tensors
+    stacked on axis 0.  The leaves are detached tensors in their own dtype
+    and on their own device (numpy has no bfloat16): ``.numpy()`` of a
+    float32 CPU leaf is the JAX package's leaf, and ``load_lm_tree`` /
+    ``lm_params_from_numpy`` invert it bit for bit."""
+    if isinstance(named, LM):
+        named = dict(named.named_parameters())
+    layers: Dict[Tuple[str, ...], list] = {}
+    tree: Dict[str, Any] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layers.setdefault(tuple(parts[2:]), []).append((int(parts[1]), t.detach()))
+            continue
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = t.detach()
+    for path, ts in layers.items():
+        node = tree.setdefault("blocks", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([t for _, t in sorted(ts, key=lambda x: x[0])])
+    return tree
 
 
 def lm_tree_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
@@ -171,6 +209,8 @@ __all__ = [
     "demand_state",
     "evolving_pair",
     "lm_params_from_numpy",
+    "lm_tree_from_params",
     "lm_tree_shapes",
+    "load_lm_tree",
     "random_lm_tree",
 ]

@@ -1,0 +1,4 @@
+"""Data pipeline (the port of ``repro/data``)."""
+from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+
+__all__ = ["SyntheticLMData", "make_batch_iterator"]

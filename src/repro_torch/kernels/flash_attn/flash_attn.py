@@ -8,6 +8,8 @@ q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``, float32 or bfloat16,
 ``hd`` in {32, 64, 128}.  On a CUDA tensor the wrapper launches the kernel
 in ``csrc/flash_attn.cu``; on a CPU tensor it runs the plain version
 :func:`~repro_torch.kernels.flash_attn.ref.blocked_attention_plain`.
+The kernel has no backward: on a CUDA input that requires grad under grad
+mode the wrapper raises, where its output would silently cut the graph.
 The kernel's route follows the dtype and nothing else; both run on the
 tensor cores (``mma.sync``): bfloat16 with P split into two bfloat16
 parts, float32 with every operand (scaled Q, K, P, V) split into three
@@ -67,6 +69,10 @@ def flash_attention(
                          f"{q_offset} must be >= 0")
     if q.device.type == "cpu":
         return blocked_attention_plain(q, k, v, causal, sliding_window, q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel writes a fresh tensor that autograd cannot follow
+        raise RuntimeError("flash_attention has no backward: an input requires grad; "
+                           "differentiate kernels.flash_attn.ref.blocked_attention_plain")
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:

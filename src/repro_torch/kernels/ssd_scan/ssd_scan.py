@@ -12,7 +12,9 @@ multiple of 64 up to 1024): three passes on the tensor cores, chunk by
 chunk in parallel, with a float32 scratch of one state per (batch, chunk,
 head) between them.  On a CPU tensor it runs the plain version
 :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_plain`.  Both mask
-the intra-chunk decay before the exponent (see ``ref.py``).
+the intra-chunk decay before the exponent (see ``ref.py``).  The kernels
+have no backward: on a CUDA input that requires grad under grad mode the
+wrapper raises, where its outputs would silently cut the graph.
 """
 from __future__ import annotations
 
@@ -114,6 +116,11 @@ def ssd_scan(
     _check(x, dt, a, b, c, chunk, init_state)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, a, b, c, chunk, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, b, c, init_state)):
+        # the kernels write fresh tensors that autograd cannot follow
+        raise RuntimeError("ssd_scan has no backward: an input requires grad; "
+                           "differentiate kernels.ssd_scan.ref.ssd_chunked_plain")
     bsz, s, h, p = x.shape
     n = b.shape[2]
     if p not in HEAD_DIMS or n not in STATE_DIMS:

@@ -1,3 +1,3 @@
-"""Launchers of the port: the prefill and serve steps and the serving
-loop (the port of ``repro/launch``; training and the mesh tooling are
-still to be ported)."""
+"""Launchers of the port: the train, prefill and serve steps, the training
+and serving loops (the port of ``repro/launch``; the mesh tooling and the
+dry run are still to be ported)."""

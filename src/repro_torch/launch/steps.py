@@ -1,18 +1,40 @@
-"""The step functions ``prefill_step`` and ``serve_step`` (the port of
-``repro/launch/steps.py``; the train step is still to be ported).
+"""The step functions ``train_step``, ``prefill_step`` and ``serve_step``
+(the port of ``repro/launch/steps.py``; ``cell_step_and_specs``, the dry
+run's, is still to be ported).
 
 ``decode_cache_from_prefill`` turns a prefill cache into the decode cache
 that ``serve_step`` continues from.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, forward, init_cache
+from repro_torch.models import decode_step, forward, init_cache, loss_fn
 from repro_torch.models.model import check_family
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+
+
+def make_train_step(cfg: ModelConfig, ocfg: Optional[AdamWConfig] = None):
+    ocfg = ocfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        """One AdamW step on ``loss_fn``'s gradients, the learning rate
+        scaled by ``cosine_schedule`` of the step before it (0 at step 0).
+        ``params`` is the model, whose parameters must require grad; it and
+        ``opt_state`` are updated in place.  Returns ``(params, opt_state,
+        {"loss", "nll", "aux"})``."""
+        named = dict(params.named_parameters())
+        loss, metrics = loss_fn(cfg, params, batch)
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        lr_scale = cosine_schedule(opt_state["step"])
+        adamw_update(named, grads, opt_state, ocfg, lr_scale)
+        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -75,4 +97,5 @@ def decode_cache_from_prefill(cfg: ModelConfig, cache: Any, seq_len: int, max_le
     return out
 
 
-__all__ = ["decode_cache_from_prefill", "make_prefill_step", "make_serve_step"]
+__all__ = ["decode_cache_from_prefill", "make_prefill_step", "make_serve_step",
+           "make_train_step"]

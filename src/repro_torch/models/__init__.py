@@ -7,7 +7,9 @@ from repro_torch.models.model import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     padded_vocab,
 )
 
-__all__ = ["LM", "decode_step", "forward", "init_cache", "init_params", "padded_vocab"]
+__all__ = ["LM", "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "padded_vocab"]

@@ -4,7 +4,9 @@
 The parameters are ``nn.Module``s whose attribute names are the JAX
 package's pytree keys (``blocks.<i>.attn.wq`` is ``params["blocks"]
 ["attn"]["wq"][i]``), with one module per layer and a plain Python loop
-over layers (no scan, no remat).  The hybrid's shared attention block is
+over layers (no scan).  The parameters are made with
+``requires_grad=False``; a trainer turns the gradients on with
+``model.requires_grad_(True)``.  The hybrid's shared attention block is
 one :class:`DenseLayer` called after every ``hybrid_attn_every`` Mamba
 layers, and the tail layers run after the last group.  ``forward``,
 ``init_cache`` and ``decode_step`` keep the JAX names and return
@@ -12,22 +14,38 @@ structures.  Unlike the JAX package's functional caches, ``decode_step``
 writes the new token's keys, values and SSM states into the cache's
 tensors in place; the dict it returns shares them.
 
+``forward`` and ``decode_step`` serve: they run under ``torch.no_grad``
+and launch K5 and K6 on the card.  ``loss_fn`` trains: it runs the same
+forward body under autograd with the plain versions of K5 and K6
+(``blocked_attention_plain``, ``ssd_chunked_plain``; the kernels have no
+backward, and the JAX package differentiates its jnp functions, not its
+Pallas kernels), and with the layers wrapped in ``torch.utils.checkpoint``
+as ``_remat`` says.
+
 ``moe``, ``encdec`` and ``vlm`` are still to be ported (``ROADMAP.md``)
 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import dense_init, rms_norm, rope, swiglu
-from repro_torch.models.ssm import SSMParams, ssm_block, ssm_decode_step
+from repro_torch.models.ssm import SSMParams, ssd_chunked, ssm_block, ssm_decode_step
 
 FAMILIES = ("dense", "ssm", "hybrid")
 
@@ -211,14 +229,15 @@ def _qkv(p: Attention, cfg: ModelConfig, x):
     return q, k, v
 
 
-def _attention_block(p: Attention, cfg: ModelConfig, x, positions):
-    """Full-sequence self-attention (prefill); K5 on the card."""
+def _attention_block(p: Attention, cfg: ModelConfig, x, positions, attend=blocked_attention):
+    """Full-sequence self-attention (prefill: ``blocked_attention``, K5 on
+    the card; training: its plain version)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = blocked_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window)
+    o = attend(q, k, v, causal=True, sliding_window=cfg.sliding_window)
     o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return o @ p.wo.to(x.dtype), (k, v)
 
@@ -246,9 +265,9 @@ def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache
     return o.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim) @ p.wo.to(x.dtype)
 
 
-def _dense_layer(layer: DenseLayer, cfg, x, positions):
+def _dense_layer(layer: DenseLayer, cfg, x, positions, attend=blocked_attention):
     h = rms_norm(x, layer.ln1)
-    attn_out, kv = _attention_block(layer.attn, cfg, h, positions)
+    attn_out, kv = _attention_block(layer.attn, cfg, h, positions, attend)
     x = x + attn_out
     h = rms_norm(x, layer.ln2)
     return x + swiglu(h, layer.mlp.wg, layer.mlp.wu, layer.mlp.wd), kv
@@ -261,8 +280,8 @@ def _dense_decode(layer: DenseLayer, cfg, x, k_cache, v_cache, cache_len):
     return x + swiglu(h, layer.mlp.wg, layer.mlp.wu, layer.mlp.wd)
 
 
-def _mamba_layer(layer: MambaLayer, cfg, x):
-    y, state = ssm_block(layer.ssm.params(), rms_norm(x, layer.ln1), cfg)
+def _mamba_layer(layer: MambaLayer, cfg, x, scan=ssd_chunked):
+    y, state = ssm_block(layer.ssm.params(), rms_norm(x, layer.ln1), cfg, scan=scan)
     return x + y, state
 
 
@@ -283,8 +302,88 @@ def _logits(params: LM, x):
 
 
 # --------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (prefill, and the training forward of loss_fn)
 # --------------------------------------------------------------------------
+
+
+class Layers(NamedTuple):
+    """The layer functions of one forward: a dense layer, the hybrid's
+    shared block and a Mamba layer."""
+
+    dense: Any
+    shared: Any
+    mamba: Any
+
+
+SERVE_LAYERS = Layers(_dense_layer, _dense_layer, _mamba_layer)
+
+
+def _products_saved(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the weight products (``x @ W`` reaches the
+    dispatcher as ``mm`` / ``addmm``), recompute everything else, batched
+    products (``bmm``: the attention's and the SSD's einsums) included, as
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat_policy``: ``none`` as it is, ``dots`` with
+    only the weight products kept for the backward, anything else (``full``)
+    recomputed whole."""
+    if cfg.remat_policy == "none":
+        return fn
+    kw = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _products_saved)
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        return checkpoint(fn, *args, **kw)
+
+    return wrapped
+
+
+def train_layers(cfg: ModelConfig) -> Layers:
+    """The training forward's layers: attention and the SSD scan through
+    their plain versions, the dense and the Mamba layer under ``_remat``
+    (the hybrid's shared block is not, as in the JAX package)."""
+    dense = functools.partial(_dense_layer, attend=blocked_attention_plain)
+    mamba = functools.partial(_mamba_layer, scan=ssd_chunked_plain)
+    return Layers(_remat(dense, cfg), dense, _remat(mamba, cfg))
+
+
+def _forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, return_cache: bool,
+             layers: Layers):
+    """The body of ``forward`` and of ``loss_fn``'s forward."""
+    check_family(cfg)
+    dt = cfg.activation_dtype
+    x = F.embedding(tokens.long(), params.embed.to(dt))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = None
+    if cfg.family == "dense":
+        kvs = []
+        for layer in params.blocks:
+            x, kv = layers.dense(layer, cfg, x, positions)
+            if return_cache:
+                kvs.append(kv)
+        if return_cache:
+            caches = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+    elif cfg.family == "ssm":
+        states = []
+        for layer in params.blocks:
+            x, st = layers.mamba(layer, cfg, x)
+            if return_cache:
+                states.append(st)
+        if return_cache:
+            caches = torch.stack(states)
+    else:
+        x, caches = _hybrid_forward(cfg, params, x, positions, return_cache, layers)
+    return _logits(params, x), aux, caches
 
 
 @torch.no_grad()
@@ -300,35 +399,10 @@ def forward(
     states ``(L, B, H, P, N)`` for ``ssm``, and ``(g_states (groups, every,
     B, H, P, N), (g_k, g_v) (groups, B, S, KV, hd), t_states (rest, B, H,
     P, N) or None)`` for ``hybrid``."""
-    check_family(cfg)
-    dt = cfg.activation_dtype
-    x = F.embedding(tokens.long(), params.embed.to(dt))
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = None
-    if cfg.family == "dense":
-        kvs = []
-        for layer in params.blocks:
-            x, kv = _dense_layer(layer, cfg, x, positions)
-            if return_cache:
-                kvs.append(kv)
-        if return_cache:
-            caches = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
-    elif cfg.family == "ssm":
-        states = []
-        for layer in params.blocks:
-            x, st = _mamba_layer(layer, cfg, x)
-            if return_cache:
-                states.append(st)
-        if return_cache:
-            caches = torch.stack(states)
-    else:
-        x, caches = _hybrid_forward(cfg, params, x, positions, return_cache)
-    return _logits(params, x), aux, caches
+    return _forward(cfg, params, tokens, return_cache, SERVE_LAYERS)
 
 
-def _hybrid_forward(cfg, params: LM, x, positions, return_cache):
+def _hybrid_forward(cfg, params: LM, x, positions, return_cache, layers: Layers):
     """Zamba2: groups of ``hybrid_attn_every`` Mamba layers, each followed
     by the one shared attention block; then the tail layers."""
     every, groups, rest = _groups(cfg)
@@ -336,20 +410,49 @@ def _hybrid_forward(cfg, params: LM, x, positions, return_cache):
     for g in range(groups):
         group = []
         for layer in params.blocks[g * every:(g + 1) * every]:
-            x, st = _mamba_layer(layer, cfg, x)
+            x, st = layers.mamba(layer, cfg, x)
             group.append(st)
-        x, (k, v) = _dense_layer(params.shared_attn, cfg, x, positions)
+        x, (k, v) = layers.shared(params.shared_attn, cfg, x, positions)
         if return_cache:
             g_states.append(torch.stack(group))
             g_k.append(k)
             g_v.append(v)
     for layer in params.blocks[groups * every:]:
-        x, st = _mamba_layer(layer, cfg, x)
+        x, st = layers.mamba(layer, cfg, x)
         t_states.append(st)
     if not return_cache:
         return x, None
     t = torch.stack(t_states) if rest else None
     return x, (torch.stack(g_states), (torch.stack(g_k), torch.stack(g_v)), t)
+
+
+# --------------------------------------------------------------------------
+# Loss / train step body
+# --------------------------------------------------------------------------
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(loss, {"nll", "aux"})`` of a batch of ``tokens`` and ``labels``
+    (B, S), differentiable in the parameters that require gradients: the
+    mean of ``logsumexp`` minus the label's logit over float32 logits, the
+    padded vocabulary masked to -1e30, plus ``0.01 * aux``."""
+    unported = set(batch) - {"tokens", "labels"}
+    if unported:
+        raise NotImplementedError(
+            f"batch inputs {sorted(unported)} (frontends) are still to be ported (ROADMAP.md)")
+    logits, aux, _ = _forward(cfg, params, batch["tokens"], False, train_layers(cfg))
+    labels = batch["labels"].long()
+    vp = logits.shape[-1]
+    logits = logits.float()
+    if vp > cfg.vocab_size:
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - ll).mean()
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -440,5 +543,7 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "loss_fn",
     "padded_vocab",
+    "train_layers",
 ]

@@ -61,8 +61,12 @@ def ssm_block(
     x: torch.Tensor,  # (B, S, D)
     cfg,
     init_state: Optional[torch.Tensor] = None,
+    scan=ssd_chunked,
 ):
-    """Full Mamba2 block: in-proj -> SSD -> gated RMSNorm -> out-proj."""
+    """Full Mamba2 block: in-proj -> SSD -> gated RMSNorm -> out-proj.
+    ``scan`` is the SSD scan: ``ssd_chunked`` (K6 on the card), or for the
+    training forward its plain version ``ssd_chunked_plain``, which autograd
+    follows."""
     d_inner = cfg.ssm_expand * cfg.d_model
     h = d_inner // cfg.ssm_head_dim
     n = cfg.ssm_state
@@ -71,7 +75,7 @@ def ssm_block(
     dt = F.softplus(dt.float() + params.dt_bias)
     a = -torch.exp(params.a_log.float())
     xh = xi.reshape(*xi.shape[:-1], h, cfg.ssm_head_dim)
-    y, state = ssd_chunked(xh, dt, a, b, c, chunk=cfg.ssm_chunk, init_state=init_state)
+    y, state = scan(xh, dt, a, b, c, chunk=cfg.ssm_chunk, init_state=init_state)
     y = y + xh.float() * params.d_skip[None, None, :, None]
     y = y.reshape(xi.shape)
     return _gated_out(params, y, z, x.dtype), state

@@ -11,8 +11,10 @@ sum, K3 (the BaseΔ tile kernels) and K4 (the AMC gather kernels) with
 ``nvcc`` and holds each against its plain PyTorch version bit for bit, on
 the families ``chip_smoke.py`` uses; K5 (``flash_attention``) and K6
 (``ssd_scan``) against their plain versions within ``chip_smoke.py``'s
-stated tolerances; and the reduced zamba2 on the card against the JAX
-package's golden record (``tests/data/torch_port_golden_lm.json``).
+stated tolerances; the reduced zamba2 on the card against the JAX
+package's golden record (``tests/data/torch_port_golden_lm.json``); K5 and
+K6 refusing inputs that require grad; and the training gradients of
+``loss_fn`` on the card against the CPU's.
 """
 import os
 import sys
@@ -78,3 +80,35 @@ def test_reduced_lm_matches_golden_on_the_card():
     for rec in json.loads(chip_smoke.GOLDEN_LM.read_text())["records"]:
         chip_smoke.lm_golden_check(rec, dev)
     assert flash_attention.launches > before[0] and ssd_scan.launches > before[1]
+
+
+@pytest.mark.cuda
+def test_lm_kernels_refuse_inputs_that_require_grad():
+    """K5 and K6 have no backward: on the card they raise on an input that
+    requires grad (their output would cut the graph) and run under
+    ``torch.no_grad``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    chip_smoke.guard_checks(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm_360m", "mamba2_780m", "zamba2_1p2b"])
+def test_training_gradients_on_the_card_equal_the_cpus(arch):
+    """``loss_fn``'s gradients of the reduced config on the card against
+    the port's on the CPU (float32, TF32 off), with no K5 or K6 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    from repro_torch.kernels.flash_attn.flash_attn import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (flash_attention.launches, ssd_scan.launches)
+    chip_smoke.train_grads_card_vs_cpu(torch.device("cuda", 0), arch)
+    assert (flash_attention.launches, ssd_scan.launches) == before

@@ -117,7 +117,9 @@ def test_port_never_imports_jax_or_repro():
     files = _port_sources()
     assert len(files) > 20
     port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files[:-1]}
-    assert {"memsim/streaming.py", "core/exec/sharded.py", "core/exec/scheduler.py"} <= port
+    assert {"memsim/streaming.py", "core/exec/sharded.py", "core/exec/scheduler.py",
+            "optim/adamw.py", "checkpoint/manager.py", "runtime/elastic.py",
+            "launch/train.py"} <= port
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -156,3 +158,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
             call(device="cuda")
     for call in calls[3:]:
         call(device="cpu")  # runs
+    from repro_torch.launch.train import main as train_main
+
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_main(["--reduced", "--steps", "0"], device=device)
