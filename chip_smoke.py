@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; each prints its seconds):
    misaligned table and out-of-range indices); K5 and K6 within stated
    tolerances (K5's families include cancelling pairs on both routes, where
    one bfloat16 rounding of P, or two bfloat16 parts of a float32 operand,
-   would show; K6's bfloat16 families include them, where one bfloat16
+   would show, and the shapes of phase 17's families: cross-attention of
+   448 queries over 1,500 keys, GQA groups of 6 and 7 at hd 128, a
+   4,096-key window over 8,192 positions; K6's bfloat16 families include them, where one bfloat16
    rounding of its G, w B or S would show; K6 runs both
    of its routes, bfloat16 and float32, and checks that both ran).  K2 runs both of its routes (a
    row's state in shared memory, and in global memory where it is over the
@@ -69,15 +71,15 @@ Phases (any failure exits non-zero; each prints its seconds):
     parameters from ``init_params`` with a seed):
     ``prefill_step`` on 4 prompts x 4,096 tokens (6 K5 and 38 K6 launches,
     finite logits), timed by host clock and CUDA events and once more under
-    ``torch.profiler``; the serve loop answering 4 requests of 512-token
+    ``torch.profiler``; the serve loop answering 4 requests of 128-token
     prompts with 32 tokens, and one decode step under ``torch.profiler``;
     a float32 cross-check of the prefill's caches and logits against the
-    same 512 tokens decoded one by one, beside the same prefill through the
+    same 256 tokens decoded one by one, beside the same prefill through the
     plain versions of K5 and K6 (``repro_torch.launch.drift``); then K5 and
     K6 timed at the prefill's shapes beside their plain versions, their
     bounds and (K5) ``scaled_dot_product_attention`` with K5's TFLOP/s, and
-    K5's float32 (tensor-core) route at the cross-check's shape beside SDPA
-    in float32, with its two bounds.
+    K5's float32 (tensor-core) route at 4 x 512 tokens beside SDPA in
+    float32, with its two bounds.
     K5 and K6 are also held against their plain versions in phase 2.
 13. ``repro_torch.core.Experiment`` on the card against the JAX package's
     rows (``tests/data/torch_port_golden_grid.json``), every row and each
@@ -106,12 +108,12 @@ Phases (any failure exits non-zero; each prints its seconds):
     this process, 9 builds in 2 workers, the workers' spans gathered) and
     ``run(workers=None)`` warm (its ``sched`` printed), both equal to the
     golden rows, and the mixed grid (bfs/comdblp#s0 beside its
-    ``ShardedSpec`` at 4096) under 2 and 1 workers; then the seconds to
-    start a pool of 1 and 2 workers (import, CUDA context, kernels) and
-    the card's memory a context takes.  Prints the cost model's constants
-    from this run.
+    ``ShardedSpec`` at 4096) under 2 and 1 workers.  Prints the cost
+    model's per-access constants from this run (the seconds to start a
+    pool and a context's memory are no longer measured here).
 15. The stream and serve protocols through ``repro_torch.core.Experiment``,
-    each cell from a fresh artifact root: ST-drift (``StreamSpec`` of
+    ST-drift and SV-contention each from a fresh artifact root, the golden
+    cells on an in-memory cache: ST-drift (``StreamSpec`` of
     pgd/comdblp, ``SlidingWindow()``, 6 epochs, ``persist`` and ``reset``,
     ``amc``, ``vldp``, ``nextline2``), serially and under ``workers=2``,
     whose merged drift document (as ``examples/streaming_drift.py
@@ -141,18 +143,46 @@ Phases (any failure exits non-zero; each prints its seconds):
     CPU's; ``flash_attention`` and ``ssd_scan`` raising on inputs that
     require grad; then smollm-360m whole (32 layers, bfloat16, remat
     ``dots``, batch 8 x 256): the step-0 gradient of every leaf finite and
-    not all zero, a step under each remat policy (ms, peak allocation) and
-    one under ``torch.profiler``, the launcher (``launch/train.py``) for 10
+    not all zero, a step (ms, peak allocation), a step each under the
+    ``none`` and ``full`` remat policies with 4 layers, the launcher (``launch/train.py``) for 10
     steps with a checkpoint every 10 (step ms, tokens/s, peak allocation,
     save seconds and bytes), the step-10 checkpoint read back bit-equal to
     the run's state, and the launcher again, resuming to step 15.  The
     training path takes the plain versions of K5 and K6 under autograd:
     each of its runs must launch neither.
+17. The ``moe``, ``vlm`` and ``encdec`` families
+    (``tests/data/torch_port_golden_families.json``, written from the JAX
+    package): (a) the reduced mixtral (a 64-key window under a 96-token
+    prompt), qwen2-vl (``embeds`` with an M-RoPE text / image / text
+    layout) and whisper (48 frames), float32, parameters from
+    ``convert.random_lm_tree``: ``prefill_step`` (K5 once a layer and
+    attention kind), 8 ``serve_step``s from ``decode_cache_from_prefill``'s
+    cache and 5 ``train_step``s (no K5), with phases 11's and 16's
+    tolerances; (b) at full width in bfloat16 from ``init_params``: M,
+    mixtral-8x22b cut to 4 layers, ``prefill_step`` on 2 x 8,192 tokens
+    (a windowed K5 a layer, the kept share of each layer's MoE plan), the
+    ring of 4,096 slots from it bit-equal to the prefill's keys and values
+    at the positions it holds, 16 serve steps; V, qwen2-vl-7b whole,
+    ``prefill_step`` on 4 x 2,048 ``embeds`` with an M-RoPE layout, the
+    serve loop answering 4 requests of 128 prompt tokens with 32; W,
+    whisper-tiny whole, 1,500 frames a request from a seeded generator, the
+    decoder's prefill of 4 x 448 tokens and 32 serve steps from its cache;
+    each with its host and CUDA-event ms and the card's peak; float32
+    cross-checks of M (2 layers) and V (4 layers), the prefill of 512
+    tokens at batch 1 against the same tokens decoded one by one
+    (``launch/drift.py``; for M at its own top-2 not applicable where its
+    prefill drops MoE slots: then held to the same prefill through K5's
+    plain version; M again at top-8 of 8 experts, where nothing can drop
+    and the check must apply); (c)
+    K5 on the first call of each kind of M's, V's and W's prefills, timed
+    beside its plain version, its bound and
+    ``scaled_dot_product_attention``.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
 bfs_do, the gather demo, K3 on D's entries, E, the reduced LMs, F's
 prefill, serve loop and float32 cross-check, each cell of phase 13,
-each run of phases 14 and 15 and each training run of phase 16) and read
+each run of phases 14 and 15, each training run of phase 16 and each
+serving and training run of phase 17) and read
 just after; each
 kernel must have launched on the paths that run it, and the ``launches``
 of the kernels line are the sums over those paths.  Prints the card's
@@ -179,6 +209,7 @@ GOLDEN_GRID = ROOT / "tests" / "data" / "torch_port_golden_grid.json"
 GOLDEN_SHARDED = ROOT / "tests" / "data" / "torch_port_golden_sharded.json"
 GOLDEN_STREAM_SERVE = ROOT / "tests" / "data" / "torch_port_golden_stream_serve.json"
 GOLDEN_TRAIN = ROOT / "tests" / "data" / "torch_port_golden_train.json"
+GOLDEN_FAMILIES = ROOT / "tests" / "data" / "torch_port_golden_families.json"
 RESULTS = (ROOT / "results" / "drift_pgd_comdblp_sliding_window.json",
            ROOT / "results" / "contention_comdblp_k3.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -766,6 +797,15 @@ def k5_families(dev):
         ("hd 128 window 128, S 1000", 2, 1000, 1000, 4, 4, 128, True, 128, 0),
         ("GQA 4, q_offset 300 into 700 keys", 2, 400, 700, 8, 2, 64, True, 0, 300),
         ("cancelling pairs, window 10 hd 64", 1, 300, 300, 4, 4, 64, True, 10, 0),
+        # the shapes of the moe, vlm and encdec families (phase 17):
+        # whisper's cross-attention (448 decoder queries over 1,500 frames),
+        # mixtral's and qwen2-vl's GQA groups of 6 and 7 at hd 128, and
+        # mixtral's 4,096-key window over 8,192 positions, whose leading
+        # tiles the window masks whole
+        ("non-causal cross 448 x 1500 hd 64", 2, 448, 1500, 6, 6, 64, False, 0, 0),
+        ("GQA 6 hd 128 causal", 1, 512, 512, 12, 2, 128, True, 0, 0),
+        ("GQA 7 hd 128 causal", 1, 384, 384, 14, 2, 128, True, 0, 0),
+        ("window 4096 at S 8192 hd 128", 1, 8192, 8192, 2, 1, 128, True, 4096, 0),
     ]
     err, n = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1429,11 +1469,12 @@ def cache_components(cache):
     return out
 
 
-def lm_golden_run(record, dev):
+def lm_golden_run(record, dev, cfg=None, batch=None, components=cache_components):
     """The reduced LM of ``record`` on ``dev``: parameters from
-    ``random_lm_tree``, ``prefill_step`` on the record's prompts, then
-    ``serve_step`` from the prefill cache, fed the record's tokens.
-    Returns ``(last logits, {component: tensor}, returned tokens (B,
+    ``random_lm_tree``, ``prefill_step`` on the record's prompts (or on
+    ``batch``, numpy arrays), then ``serve_step`` from
+    ``decode_cache_from_prefill``'s cache, fed the record's tokens.
+    Returns ``(last logits, components(prefill cache), returned tokens (B,
     gen))``."""
     import numpy as np
     import torch
@@ -1443,12 +1484,14 @@ def lm_golden_run(record, dev):
         decode_cache_from_prefill, make_prefill_step, make_serve_step,
     )
 
-    cfg = lm_config(record)
+    cfg = cfg or lm_config(record)
     model = lm_params_from_numpy(cfg, random_lm_tree(cfg, record["param_seed"]), device=dev)
     tokens = torch.tensor(record["tokens"], dtype=torch.int32, device=dev)
     s, gen = record["prompt_len"], record["gen"]
-    last, cache = make_prefill_step(cfg)(model, {"tokens": tokens[:, :s]})
-    comps = cache_components(cache)
+    batch = ({"tokens": tokens[:, :s]} if batch is None else
+             {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    last, cache = make_prefill_step(cfg)(model, batch)
+    comps = components(cache)
     dcache = decode_cache_from_prefill(cfg, cache, s, s + gen + 1)
     step = make_serve_step(cfg)
     fed = torch.cat([tokens[:, s:s + 1],
@@ -1463,10 +1506,17 @@ def lm_golden_run(record, dev):
 def lm_golden_check(record, dev):
     """Phase 11 for one record: the port's run against the JAX package's
     golden values; returns the max abs error of the logits."""
+    return serve_golden_check(record, *lm_golden_run(record, dev))
+
+
+def serve_golden_check(record, last, comps, gen):
+    """A serving record (phases 11 and 17): the last logits, each cache
+    component's shape, first values, L2 norm and absolute sum, and each
+    serve step's token against the JAX package's; returns the max abs
+    error of the logits."""
     import numpy as np
     import torch
 
-    last, comps, gen = lm_golden_run(record, dev)
     name = record["name"]
     err = close(last.float().cpu(), torch.tensor(record["last_logits"]), what=f"{name} logits",
                 **LM_TOL)
@@ -1587,47 +1637,77 @@ def path_f_xcheck(cfg, tokens, seed, dev):
     return worst
 
 
-def time_lm_kernels(keep, dev, errs, launches):
-    """Phase 12.4: K5 and K6 on the inputs of their first calls in path F's
-    bf16 prefill, held against their plain versions and timed with CUDA
-    events beside the plain versions, the bound and the library call."""
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs that K5's mask keeps (q_offset 0)."""
+    import torch
+
+    q = torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(q, max=skv - 1) if causal else torch.full_like(q, skv - 1)
+    lo = torch.clamp(q - window + 1, min=0) if window else torch.zeros_like(q)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def time_k5(q, k, v, causal: bool, win: int, dev, what: str) -> dict:
+    """K5 on ``(q, k, v)`` held against its plain version and timed with
+    CUDA events beside the plain version, its bound (the kept pairs'
+    operations, or the bytes of q, k, v and the output) and
+    ``scaled_dot_product_attention`` (with a window as a boolean mask);
+    logs a line that starts with ``what``."""
     import torch
 
     from repro_torch.kernels.flash_attn.flash_attn import flash_attention
     from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
+
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    run = lambda: flash_attention(q, k, v, causal=causal, sliding_window=win)  # noqa: E731
+    ms, host = cuda_ms(run, dev, reps=10), enqueue_us(run, dev)
+    ref = blocked_attention_plain(q, k, v, causal, win)
+    err = close(run(), ref, what=f"K5 at {what}", **ATTN_TOL[str(q.dtype)[6:]])
+    rms = float(ref.float().pow(2).mean().sqrt())
+    del ref
+    plain = cuda_ms(lambda: blocked_attention_plain(q, k, v, causal, win), dev, reps=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = dict(enable_gqa=True) if kvh != h else {}
+    if win:
+        qp, kp = torch.arange(sq, device=dev)[:, None], torch.arange(skv, device=dev)[None, :]
+        sdpa["attn_mask"] = (kp > qp - win) & ((kp <= qp) if causal else True)
+    else:
+        sdpa["is_causal"] = causal
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **sdpa),
+                  dev, reps=10)
+    flop = 4 * hd * b * h * attention_pairs(sq, skv, causal, win)
+    bnd, by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(), flop,
+                    BF16_OPS_PER_S)
+    log(f"  flash_attention at {what}: {ms:.3f} ms (plain {plain:.3f} ms, SDPA {lib:.3f} ms, "
+        f"bound {bnd:.4f} ms by {by}); {flop / ms * 1e-9:.1f} TFLOP/s, {ms / lib:.2f} x SDPA's "
+        f"time in this call; max abs err against the plain version {err:.3g} (output rms "
+        f"{rms:.3g})")
+    return dict(ms=ms, host_us=host, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                max_abs_err=err, tflops=flop / ms * 1e-9)
+
+
+def time_lm_kernels(keep, dev, errs, launches):
+    """Phase 12.4: K5 and K6 on the inputs of their first calls in path F's
+    bf16 prefill, held against their plain versions and timed with CUDA
+    events beside the plain versions, the bound and the library call."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 
     out = []
     (q, k, v), kw = keep["flash_attention"]
     b, s, h, hd = q.shape
-    causal, win = kw.get("causal", True), kw.get("sliding_window", 0)
-    run = lambda: flash_attention(q, k, v, causal=causal, sliding_window=win)  # noqa: E731
-    ms, host = cuda_ms(run, dev, reps=10), enqueue_us(run, dev)
-    ref = blocked_attention_plain(q, k, v, causal, win)
-    plain = cuda_ms(lambda: blocked_attention_plain(q, k, v, causal, win), dev, reps=2)
-    e_attn = close(run(), ref, what="K5 at path F's shape", **ATTN_TOL[str(q.dtype)[6:]])
-    errs["flash_attention"] = max(errs["flash_attention"], e_attn)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    gqa = {"enable_gqa": True} if k.shape[2] != h else {}
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, **gqa), dev, reps=10)
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)  # no window on this path
-    flop = 4 * hd * pairs
-    bnd, by = bound(4 * q.numel() * q.element_size(), flop, BF16_OPS_PER_S)
+    shape = f"q, k, v ({b}, {s}, {h}, {hd}) {str(q.dtype)[6:]}, causal"
+    t = time_k5(q, k, v, kw.get("causal", True), kw.get("sliding_window", 0), dev,
+                f"path F's {shape}")
+    errs["flash_attention"] = max(errs["flash_attention"], t["max_abs_err"])
     f32 = time_k5_float32(b, h, hd, dev)
     out.append(dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
                     replaces="src/repro/kernels/flash_attn/flash_attn.py:70",
                     launches=launches["flash_attention"], max_abs_err=errs["flash_attention"],
-                    path_f_max_abs_err=e_attn, ms=ms, host_us=host, plain_ms=plain,
-                    bound_ms=bnd, bound_by=by, library_ms=lib, tflops=flop / ms * 1e-9,
-                    float32_route=f32,
-                    shape=f"q, k, v ({b}, {s}, {h}, {hd}) {str(q.dtype)[6:]}, causal"))
-    log(f"  flash_attention: {ms:.3f} ms (plain {plain:.3f} ms, SDPA {lib:.3f} ms, "
-        f"bound {bnd:.4f} ms by {by}); {flop / ms * 1e-9:.1f} TFLOP/s, "
-        f"{ms / lib:.2f} x SDPA's time in this call; max abs err against the plain version "
-        f"here {e_attn:.3g} (output rms {float(ref.float().pow(2).mean().sqrt()):.3g})")
+                    path_f_max_abs_err=t.pop("max_abs_err"), **t, float32_route=f32,
+                    shape=shape))
 
     (x, dt, a, bm, cm), kw = keep["ssd_scan"]
     chunk = kw["chunk"]
@@ -1666,11 +1746,11 @@ def time_lm_kernels(keep, dev, errs, launches):
 
 def time_k5_float32(b, h, hd, dev):
     """K5's float32 route (the tensor cores, three bf16 parts a side) at
-    the cross-check's attention shape ((b, 512, h, hd), causal, random
-    inputs from a seed), held against its plain version and timed beside
-    SDPA in float32, with its two bounds: the float32 work at the CUDA
-    cores' peak, and the split's bf16 products (six a product) at the
-    tensor cores' peak, the lower of the two and the design it assumes."""
+    (b, 512, h, hd), causal, random inputs from a seed, held against its
+    plain version and timed beside SDPA in float32, with its two bounds:
+    the float32 work at the CUDA cores' peak, and the split's bf16 products
+    (six a product) at the tensor cores' peak, the lower of the two and the
+    design it assumes."""
     import numpy as np
     import torch
 
@@ -1725,7 +1805,9 @@ def profile_share(what, fn, dev):
 PATH_F_SEED = 0
 PATH_F_BATCH = 4
 PATH_F_PREFILL = 4096  # tokens per prompt of the prefill
-PATH_F_PROMPT = 512  # tokens per prompt of the serve loop
+PATH_F_PROMPT = 512  # tokens per prompt of K5's float32 route timing
+PATH_F_XCHECK = 256  # tokens per prompt of the float32 cross-check
+PATH_F_SERVE_PROMPT = 128  # tokens per prompt of the serve loop
 PATH_F_GEN = 32
 
 
@@ -1776,16 +1858,17 @@ def path_f(dev, run_path, errs, totals):
 
     tokens = prompt_tokens(np.random.default_rng(PATH_F_SEED), cfg.vocab_size, PATH_F_BATCH,
                            PATH_F_PROMPT)
-    res = run_path("F serve", (), lambda: serve_loop(cfg, model, tokens, PATH_F_GEN))
+    res = run_path("F serve", (), lambda: serve_loop(
+        cfg, model, tokens[:, :PATH_F_SERVE_PROMPT + 1], PATH_F_GEN))
     check(res.gen.shape == (PATH_F_BATCH, PATH_F_GEN), f"path F serve: tokens {res.gen.shape}")
     check(bool(((res.gen >= 0) & (res.gen < padded_vocab(cfg.vocab_size))).all()),
           "path F serve: token ids out of the padded vocabulary")
     check(bool(torch.isfinite(res.prompt_logits).all()), "path F serve: non-finite logits")
-    log(f"  serve loop: {PATH_F_BATCH} requests, {PATH_F_PROMPT} prompt tokens fed in "
-        f"{res.prefill_s:.2f} s ({PATH_F_PROMPT / res.prefill_s:.1f} steps/s), {PATH_F_GEN} "
+    log(f"  serve loop: {PATH_F_BATCH} requests, {PATH_F_SERVE_PROMPT} prompt tokens fed in "
+        f"{res.prefill_s:.2f} s ({PATH_F_SERVE_PROMPT / res.prefill_s:.1f} steps/s), {PATH_F_GEN} "
         f"tokens generated in {res.decode_s:.2f} s "
         f"({PATH_F_BATCH * PATH_F_GEN / res.decode_s:.1f} tokens/s); sample {res.gen[0, :8].tolist()}")
-    cache = init_cache(cfg, PATH_F_BATCH, PATH_F_PROMPT + PATH_F_GEN + 1, device=dev)
+    cache = init_cache(cfg, PATH_F_BATCH, PATH_F_SERVE_PROMPT + PATH_F_GEN + 1, device=dev)
     tok = torch.from_numpy(tokens[:, :1]).to(dev)
     decode_step(cfg, model, tok, cache)
     profile_share("one decode step", lambda: decode_step(cfg, model, tok, cache), dev)
@@ -1793,7 +1876,7 @@ def path_f(dev, run_path, errs, totals):
     torch.cuda.empty_cache()
 
     run_path("F float32 cross-check", lm,
-             lambda: path_f_xcheck(cfg, tokens[:, :PATH_F_PROMPT + 1], PATH_F_SEED, dev),
+             lambda: path_f_xcheck(cfg, tokens[:, :PATH_F_XCHECK + 1], PATH_F_SEED, dev),
              exact={k: 2 * n for k, n in exact.items()})  # two prefills
     torch.cuda.empty_cache()
     return time_lm_kernels(keep, dev, errs, totals)
@@ -2079,69 +2162,12 @@ class RssPeak:
         self._thread.join()
 
 
-def _warm_worker(device: str, barrier: str, n: int):
-    """A pool worker's start: import the port, open a CUDA context, load
-    the graph path's kernels; then wait for all ``n`` workers (a file each
-    under ``barrier``) and report the card's free memory."""
-    import os
-
-    import torch
-
-    from repro_torch.core.exec.scheduler import graph_kernel_sources
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels import build
-
-    dev = resolve_device(device)
-    torch.zeros(1, device=dev)
-    for src in graph_kernel_sources():
-        build.load(src)
-    Path(barrier, str(os.getpid())).touch()
-    deadline = time.time() + 300
-    while len(os.listdir(barrier)) < n and time.time() < deadline:
-        time.sleep(0.01)
-    return os.getpid(), torch.cuda.mem_get_info(dev)[0]
-
-
-def spawn_times(dev, root: Path) -> dict:
-    """Seconds until a spawned pool of P workers (P = 1, 2) has every
-    worker started as the scheduler's workers start (``_spawn_pool``), and
-    the card's free memory each worker's context takes; fits t(P) = base +
-    P x per_worker."""
-    import numpy as np
-    import torch
-
-    from repro_torch.core import ArtifactCache
-    from repro_torch.core.exec import scheduler
-
-    out = {}
-    for n in (1, 2):
-        barrier = root / f"barrier{n}"
-        barrier.mkdir(parents=True)
-        free0 = torch.cuda.mem_get_info(dev)[0]
-        t0 = time.perf_counter()
-        with scheduler._spawn_pool(ArtifactCache(root), n, n, dev) as pool:
-            got = [f.result() for f in [pool.submit(_warm_worker, str(dev), str(barrier), n)
-                                        for _ in range(n)]]
-            t = time.perf_counter() - t0
-        check(len({pid for pid, _ in got}) == n, f"spawn timing: {n} tasks ran in "
-              f"{len({pid for pid, _ in got})} workers")
-        out[n] = dict(seconds=t, context_bytes=(free0 - min(f for _, f in got)) / n,
-                      with_shutdown=time.perf_counter() - t0)
-    ps = np.array(sorted(out), dtype=float)
-    per_worker, base = np.polyfit(ps, [out[int(p)]["seconds"] for p in ps], 1)
-    log("  spawn seconds " + json.dumps({n: {k: round(v, 3) for k, v in d.items()}
-                                         for n, d in out.items()})
-        + f"; fit t(P) = {base:.3f} + {per_worker:.3f} P")
-    return dict(base=float(base), per_worker=float(per_worker),
-                context_bytes=float(np.median([d["context_bytes"] for d in out.values()])))
-
-
 def phase14(gold: dict, grid: dict, dev, run_path, calib: dict):
     """Sharded and parallel on the card: S-parity under both engines and
     beside its unsharded rows, S-full at paper scale, the scheduler's pool
     (G cold under ``workers=2``, then ``workers=None`` warm; the mixed
-    grid under ``workers=2`` and 1), and the spawn timing; then the cost
-    model's constants from this run."""
+    grid under ``workers=2`` and 1); then the cost model's constants from
+    this run (the spawn constants are not re-measured here)."""
     import os
     import resource
     import tempfile
@@ -2214,7 +2240,6 @@ def phase14(gold: dict, grid: dict, dev, run_path, calib: dict):
                 exact=no_launch if workers > 1 else None)
         check(mixed[2] == mixed[1] and mixed[1][:2] == mixed[1][2:],
               "P: the mixed grid's rows differ between workers=2 and 1, or sharded from unsharded")
-        spawn = spawn_times(dev, tmp / "spawn")
 
     shard = manifest["shard_accesses"]
     consts = dict(
@@ -2224,9 +2249,6 @@ def phase14(gold: dict, grid: dict, dev, run_path, calib: dict):
         ARTIFACT_BYTES_PER_ACCESS=calib["artifact_bytes"] / calib["accesses"],
         TRACE_BYTES_PER_ACCESS=calib["trace_bytes"] / calib["accesses"],
         DEVICE_BYTES_PER_ACCESS=peak_dev / shard,
-        SPAWN_BASE_S=spawn["base"],
-        SPAWN_PER_WORKER_S=spawn["per_worker"],
-        CUDA_CONTEXT_BYTES=spawn["context_bytes"],
     )
     log("  cost model from this run " + json.dumps({k: float(f"{v:.4g}") for k, v in consts.items()})
         + f" (G: {calib['accesses']:,} accesses)")
@@ -2354,9 +2376,10 @@ class SharedLlcClock:
         return (self.launches, self.share_s, self.pass_s, self.k1_s)
 
 
-def protocol_cell(name: str, specs, prefetchers, dev, root: Path, workers=1, llc=None):
+def protocol_cell(name: str, specs, prefetchers, dev, root=None, workers=1, llc=None):
     """Run stream / serve ``specs`` through ``repro_torch.core.Experiment``
-    on ``dev`` from the artifact root ``root``; log the host seconds, the
+    on ``dev`` from the artifact root ``root`` (an in-memory cache alone
+    where ``root`` is None); log the host seconds, the
     stream and serve stages, the artifact spans, the shared-LLC parts (from
     the entered :class:`SharedLlcClock` ``llc``) and the card's peak
     allocation.  Returns the ``ExperimentResult``."""
@@ -2371,7 +2394,7 @@ def protocol_cell(name: str, specs, prefetchers, dev, root: Path, workers=1, llc
         torch.empty(0, device=dev)  # the allocator's stats need a context
         torch.cuda.reset_peak_memory_stats(dev)
     llc0 = llc.snapshot() if llc is not None else None
-    cache = WorkloadCache(artifacts=ArtifactCache(root))
+    cache = WorkloadCache(artifacts=None if root is None else ArtifactCache(root))
     t0 = time.perf_counter()
     with collect_stages() as stages, trace() as tracer:
         res = Experiment(workloads=specs, prefetchers=prefetchers, cache=cache,
@@ -2402,12 +2425,15 @@ def protocol_cell(name: str, specs, prefetchers, dev, root: Path, workers=1, llc
 
 
 def phase15(gold: dict, dev, run_path):
-    """Stream and serve protocols through ``Experiment`` on the card, each
-    cell from a fresh artifact root: ST-drift and SV-contention against the
-    committed ``results/`` documents (each then under ``workers=2``, whose
+    """Stream and serve protocols through ``Experiment`` on the card:
+    ST-drift and SV-contention against the committed ``results/`` documents,
+    each from a fresh artifact root (then under ``workers=2`` from it, whose
     rows must equal the serial rows), ST-full, SV-full, ST-models and
-    SV-rate against ``tests/data/torch_port_golden_stream_serve.json``, and
-    the zero-churn stream's ``trace_reuse`` cold and warm."""
+    SV-rate against ``tests/data/torch_port_golden_stream_serve.json`` on an
+    in-memory cache (no run reads their artifacts; the saves cost 37-65 %
+    of such a cell, and ST-drift and SV-contention measure them), and the
+    zero-churn stream's ``trace_reuse`` cold and warm from one artifact
+    root."""
     import tempfile
 
     from repro_torch.core.exec.scheduler import rows_equal
@@ -2466,7 +2492,7 @@ def phase15(gold: dict, dev, run_path):
                                             cell.get("streams", []) + cell.get("serve", {})
                                             .get("tenants", [])) else ())
                 res = run_path(name, expect, lambda: protocol_cell(
-                    name, cell_workloads(cell), cell["prefetchers"], dev, tmp / name, llc=llc))
+                    name, cell_workloads(cell), cell["prefetchers"], dev, llc=llc))
                 rows = jsonable(res.rows())
                 check(len(rows) == len(cell["rows"]),
                       f"{name}: {len(rows)} rows, golden {len(cell['rows'])}")
@@ -2509,23 +2535,24 @@ TRAIN_LEAF_RTOL = 1e-5
 TRAIN_GRAD_ATOL = {"dense": 1e-6, "ssm": 3e-5, "hybrid": 3e-5}
 NO_LM_KERNEL = {"flash_attention": 0, "ssd_scan": 0}  # training takes the plain versions
 T_BATCH, T_SEQ = 8, 256  # the launcher's defaults
+T_REMAT_LAYERS = 4  # smollm-360m's depth under the remat policies not its own
 # 10 steps with one checkpoint, resumed to 15 (the issue's 20 + 5 cut for
 # the script's time; each save and restore moves 3.6 GB)
 T_STEPS, T_RESUME, T_EVERY = 10, 15, 10
 
 
-def train_golden_run(cfg, record, dev, leaf_norms: bool):
+def train_golden_run(cfg, record, dev, leaf_norms: bool, batches=None):
     """The port's training run of a golden record on ``dev``: parameters
     from ``random_lm_tree``, the step-0 gradient's global norm, then one
     ``train_step`` on each of the record's batches (its token sequences:
-    numpy versions differ in ``SyntheticLMData``'s draws).  Returns
-    ``(losses, gradient norm, {leaf path: L2 norm after the last step} or
-    None)``."""
+    numpy versions differ in ``SyntheticLMData``'s draws; or ``batches``,
+    dicts of numpy arrays, where given).  Returns ``(losses, gradient
+    norm, {leaf path: L2 norm after the last step} or None)``."""
     import torch
 
     from repro_torch.checkpoint.manager import tree_flatten_with_path
     from repro_torch.convert import lm_params_from_numpy, lm_tree_from_params, random_lm_tree
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import make_train_step, param_grads
     from repro_torch.models import loss_fn
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.adamw import global_norm
@@ -2534,10 +2561,13 @@ def train_golden_run(cfg, record, dev, leaf_norms: bool):
     named = dict(model.requires_grad_(True).named_parameters())
     ocfg = AdamWConfig(lr=record["lr"], state_dtype=cfg.opt_state_dtype)
     opt = adamw_init(named, ocfg)
-    seqs = [torch.tensor(s, dtype=torch.int32, device=dev) for s in record["sequences"]]
-    batches = [{"tokens": s[:, :-1], "labels": s[:, 1:]} for s in seqs]
+    if batches is None:
+        seqs = [torch.tensor(s, dtype=torch.int32, device=dev) for s in record["sequences"]]
+        batches = [{"tokens": s[:, :-1], "labels": s[:, 1:]} for s in seqs]
+    else:
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
     loss, _ = loss_fn(cfg, model, batches[0])
-    gn = global_norm(dict(zip(named, torch.autograd.grad(loss, list(named.values()))))).item()
+    gn = global_norm(param_grads(loss, named, batches[0])).item()
     step_fn = make_train_step(cfg, ocfg)
     losses = []
     for batch in batches:
@@ -2650,10 +2680,13 @@ def dir_bytes(path) -> int:
 def remat_steps(cfg, dev):
     """smollm-360m at the launcher's defaults from ``init_params``: the
     step-0 gradient of every leaf finite and not all zero; then two train
-    steps under each remat policy, the second's host ms and the peak
-    allocation of both, and under the config's own policy a third step
-    under ``torch.profiler``."""
+    steps under the config's remat policy, and two under each other policy
+    with the model cut to ``T_REMAT_LAYERS`` layers (``none`` is the
+    launcher's under ``--reduced``): the second's host ms and the peak
+    allocation of both (a step under ``torch.profiler`` is not re-measured
+    here, for the script's time)."""
     import dataclasses
+    import math
 
     import torch
 
@@ -2674,19 +2707,25 @@ def remat_steps(cfg, dev):
     log(f"  step-0 gradient: {len(grads)} leaves, every one finite and not all zero "
         f"(loss {loss.item():.4f})")
     del loss, grads
-    for policy in ("none", "dots", "full"):
+    others = [p for p in ("none", "dots", "full") if p != cfg.remat_policy]
+    for policy in [cfg.remat_policy] + others:
         pc = dataclasses.replace(cfg, remat_policy=policy)
+        if policy != cfg.remat_policy:
+            pc = dataclasses.replace(pc, num_layers=T_REMAT_LAYERS)
+            del model, named
+            torch.cuda.empty_cache()
+            model = init_params(pc, 0, device=dev).requires_grad_(True)
+            named = dict(model.named_parameters())
         ocfg = AdamWConfig(state_dtype=pc.opt_state_dtype)
         opt = adamw_init(named, ocfg)
         step = make_train_step(pc, ocfg)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        step(model, opt, batch)
-        ms = host_ms(lambda: step(model, opt, batch), dev)[0]
-        log(f"  one train step under remat {policy!r}: {ms:.1f} ms host clock, peak "
-            f"allocation {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-        if policy == cfg.remat_policy:
-            profile_share(f"one train step (remat {policy!r})", lambda: step(model, opt, batch), dev)
+        losses = [float(step(model, opt, batch)[2]["loss"])]
+        ms = host_ms(lambda: losses.append(float(step(model, opt, batch)[2]["loss"])), dev)[0]
+        check(all(map(math.isfinite, losses)), f"remat {policy!r}: losses {losses}")
+        log(f"  one train step under remat {policy!r} ({pc.num_layers} layers): {ms:.1f} ms host "
+            f"clock, peak allocation {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
         del opt
     del model, named, batch
     torch.cuda.empty_cache()
@@ -2696,7 +2735,8 @@ def phase16(gold: dict, dev, run_path):
     """LM training: the reduced golden records, the 4-layer full-width
     smollm-360m record, the card's gradients against the CPU's, the
     autograd guard of K5 and K6, then smollm-360m whole: the step-0
-    gradient and a step under each remat policy, and the launcher
+    gradient and a step under ``dots`` (``none`` and ``full`` at
+    ``T_REMAT_LAYERS`` layers), and the launcher
     (``launch/train.py``): ``T_STEPS`` steps with a checkpoint, read back
     bit for bit, and a resumed run to ``T_RESUME``."""
     import math
@@ -2796,6 +2836,476 @@ def guard_checks(dev):
             call()
 
 
+# ------------------------------------------------------------ phase 17
+
+
+def mrope_layout(text1: int, grid_h: int, grid_w: int, text2: int):
+    """M-RoPE position ids ``(3, S)`` int32 of text, one image of ``grid_h
+    x grid_w`` patches, then text, as Qwen2-VL assigns them (arXiv:2409.12191
+    §2.1): a text token has t = h = w = its index; the image's patches
+    share t and take h and w from their row and column, offset by the
+    image's start; the text after it resumes one past the largest id so
+    far."""
+    import numpy as np
+
+    t = np.arange(text1)
+    pos = [np.stack([t, t, t])]
+    rows, cols = np.meshgrid(np.arange(grid_h), np.arange(grid_w), indexing="ij")
+    pos.append(np.stack([np.full(grid_h * grid_w, text1), text1 + rows.ravel(),
+                         text1 + cols.ravel()]))
+    t = text1 + max(grid_h, grid_w) + np.arange(text2)
+    pos.append(np.stack([t, t, t]))
+    return np.concatenate(pos, axis=1).astype(np.int32)
+
+
+# The reduced records of the moe, vlm and encdec families
+# (tests/data/torch_port_golden_families.json, written from the JAX
+# package) are held with phase 11's tolerances (logits and first cache
+# values rtol/atol 1e-3, cache norms 1e-4, serve-step tokens within 1e-2 of
+# the step's largest logit) and phase 16's (losses 1e-4, the step-0
+# gradient norm 1e-3).  The embeds and frames a record feeds are numpy draws
+# from its seed, held to the record's L2 norm of them to DRAW_RTOL first.
+DRAW_RTOL = 1e-6
+FAMILY_SEED = 0
+# M: mixtral-8x22b at full width, cut to 4 of its 56 layers
+M_LAYERS, M_BATCH, M_PREFILL, M_GEN = 4, 2, 8192, 16
+# V: qwen2-vl-7b whole; the prefill's M-RoPE layout: 64 text tokens, an
+# image of 32 x 48 patches, 448 text tokens (2,048 positions)
+V_BATCH, V_PREFILL, V_LAYOUT, V_PROMPT, V_GEN = 4, 2048, (64, 32, 48, 448), 128, 32
+# W: whisper-tiny whole; 1,500 frames stand in for the stubbed conv frontend
+W_BATCH, W_FRAMES, W_PREFILL, W_GEN = 4, 1500, 448, 32
+# the float32 cross-checks, (arch, layers, config changes): M cut to 2
+# layers, V to 4, 512 tokens at batch 1 (so that a decode step of the MoE
+# keeps every slot).  M's random router drops slots in its prefill at top-2,
+# where the check is not applicable; at top-8 of its 8 experts the capacity
+# (1.25 x 512) exceeds each expert's 512 slots, nothing drops, and the
+# prefill is held to its decode through the MoE's dispatch and combine
+XF_TOKENS = 512
+XF_CASES = [("mixtral_8x22b", 2, {}), ("mixtral_8x22b", 2, {"moe_top_k": 8}),
+            ("qwen2_vl_7b", 4, {})]
+
+
+def family_inputs(cfg, record, step=None):
+    """The numpy inputs of a family record: the prefill's (``step`` None)
+    or those of train step ``step``.  Tokens and labels come from the
+    record; ``embeds`` (the vlm: N(0, 1 / d_model)) and ``frames`` (the
+    encdec: 0.5 N(0, 1), ``record["frames"]`` of them) are drawn from
+    ``numpy.random.default_rng(input_seed + 1 + step)`` (the prefill: step
+    -1) and held against the record's L2 norm of the draw; ``positions3``
+    is ``mrope_layout`` of the record's layout.  Returns ``(batch, draws)``,
+    ``draws`` the L2 norms of what was drawn."""
+    import numpy as np
+
+    if step is None:
+        seq, key = np.asarray(record["tokens"], np.int32), "prefill"
+        s = record["prompt_len"]
+        batch = {"tokens": seq[:, :s]}
+    else:
+        seq, key = np.asarray(record["train_sequences"][step], np.int32), f"train{step}"
+        s = seq.shape[1] - 1
+        batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    b = seq.shape[0]
+    rng = np.random.default_rng(record["input_seed"] + 1 + (-1 if step is None else step))
+    if cfg.family == "vlm":
+        del batch["tokens"]
+        batch["embeds"] = (rng.standard_normal((b, s, cfg.d_model))
+                           / np.sqrt(cfg.d_model)).astype(np.float32)
+        layout = record["layout"] if step is None else record["train_layout"]
+        batch["positions3"] = np.broadcast_to(mrope_layout(*layout), (b, 3, s)).copy()
+    if cfg.family == "encdec":
+        batch["frames"] = (0.5 * rng.standard_normal((b, record["frames"], cfg.d_model))).astype(
+            np.float32)
+    draws = {k: float(np.linalg.norm(batch[k].astype(np.float64)))
+             for k in ("embeds", "frames") if k in batch}
+    for k, want in record.get("draws", {}).get(key, {}).items():
+        check(abs(draws[k] - want) <= DRAW_RTOL * want,
+              f"{record['name']}: this numpy draws other {k} for {key} (L2 {draws[k]} vs the "
+              f"record's {want})")
+    return batch, draws
+
+
+def family_cache_components(cfg, cache):
+    """Named tensors of a prefill cache of the attention families."""
+    if cfg.family == "encdec":
+        (k, v), (xk, xv) = cache
+        return dict(k=k, v=v, xk=xk, xv=xv)
+    k, v = cache
+    return dict(k=k, v=v)
+
+
+def family_k5_launches(cfg) -> int:
+    """K5 launches of one prefill: a self-attention a layer, and for the
+    encdec a cross-attention a decoder layer and the encoder's layers."""
+    return cfg.num_layers * (2 if cfg.family == "encdec" else 1) + cfg.encoder_layers
+
+
+def family_golden_check(record, dev, run_path=None):
+    """Phase 17 (a) for one record: its serving run (``lm_golden_run`` on
+    the record's inputs, ``prefill_step`` launching K5 once a layer and
+    attention kind) and its training run (5 ``train_step``s, no K5)
+    against the JAX package's values.  ``run_path``
+    (``main``'s) counts the launches of each; without it the two run
+    directly."""
+    import functools
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(record["arch"]).reduced()
+    name = record["name"]
+    run = run_path or (lambda _name, _expect, fn, exact=None: fn())
+    serving = lambda: lm_golden_run(  # noqa: E731
+        record, dev, cfg, family_inputs(cfg, record)[0],
+        functools.partial(family_cache_components, cfg))
+    run(f"{name} serve", ("flash_attention",), lambda: serve_golden_check(record, *serving()),
+        exact={"flash_attention": family_k5_launches(cfg)})
+    batches = [family_inputs(cfg, record, i)[0] for i in range(len(record["losses"]))]
+    losses, gn, _ = run(f"{name} train", (), lambda: train_golden_run(
+        cfg, record, dev, False, batches), exact=NO_LM_KERNEL)
+    for i, (got, want) in enumerate(zip(losses, record["losses"])):
+        check(rel_err(got, want) <= TRAIN_LOSS_RTOL,
+              f"{name}: loss of step {i} {got} vs {want} (rel {rel_err(got, want):.2e})")
+    check(rel_err(gn, record["grad_norm0"]) <= TRAIN_GRAD_NORM_RTOL,
+          f"{name}: step-0 gradient norm {gn} vs {record['grad_norm0']}")
+    margin = record.get("min_router_margin")
+    log(f"  {name}: {len(losses)} losses within "
+        f"{max(rel_err(g, w) for g, w in zip(losses, record['losses'])):.2e} (rtol "
+        f"{TRAIN_LOSS_RTOL:g}), step-0 gradient norm within {rel_err(gn, record['grad_norm0']):.2e}"
+        + (f"; smallest margin between the router's k-th and (k+1)-th logit {margin:.3g}"
+           if margin is not None else ""))
+
+
+class MoEPlans:
+    """While open, ``models.model.moe_ffn`` records each call's token
+    count and plan (slot experts, ranks, kept slots)."""
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+
+        self.mod, self.fn, self.calls = model_mod, model_mod.moe_ffn, []
+
+        def wrapped(x, *args, **kwargs):
+            y, aux, plan = self.fn(x, *args, **kwargs)
+            self.calls.append((x.shape[0], plan))
+            return y, aux, plan
+
+        model_mod.moe_ffn = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_ffn = self.fn
+
+    def kept(self, n=None):
+        """The kept share of each call (of ``n`` tokens, where given)."""
+        return [float(plan[2].float().mean()) for m, plan in self.calls if n is None or m == n]
+
+
+def capture_k5(keep, path):
+    """Replace the model's ``flash_attention`` by a wrapper that keeps the
+    first call's arguments of each (path, q shape, k shape, causal, window)
+    in ``keep``; returns the undo function."""
+    from repro_torch.models import attention
+
+    fn = attention.flash_attention
+
+    def wrapped(q, k, v, causal=True, sliding_window=0, q_offset=0):
+        keep.setdefault((path, tuple(q.shape), tuple(k.shape), causal, sliding_window),
+                        ((q, k, v), dict(causal=causal, sliding_window=sliding_window)))
+        return fn(q, k, v, causal=causal, sliding_window=sliding_window, q_offset=q_offset)
+
+    attention.flash_attention = wrapped
+    return lambda: setattr(attention, "flash_attention", fn)
+
+
+def full_width_model(arch, dev, **changes):
+    """``init_params`` of ``arch`` (with ``changes``) on ``dev`` from
+    FAMILY_SEED; logs its size and draw seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    t0 = time.perf_counter()
+    model = init_params(cfg, FAMILY_SEED, device=dev)
+    sync(dev)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}, {cfg.num_layers} layers: {n:,} parameters in {cfg.param_dtype} "
+        f"({n * model.embed.element_size() / 1e9:.2f} GB), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def prefill_run(name, cfg, model, batch, dev, run_path, keep):
+    """``prefill_step`` of a full-width path: launched through ``run_path``
+    with K5 once a layer and attention kind; host ms of the first call,
+    CUDA-event ms of two more, the card's peak, one more under
+    ``torch.profiler``; finite logits and cache.  Returns ``(last logits,
+    cache, plans)``."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    undo = capture_k5(keep, name)
+    try:
+        with MoEPlans() as plans:
+            host, (last, cache) = run_path(
+                f"{name} prefill", ("flash_attention",), lambda: host_ms(lambda: step(model, batch),
+                                                                         dev),
+                exact={"flash_attention": family_k5_launches(cfg)})
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ms = cuda_ms(lambda: step(model, batch), dev, reps=2)
+    check(bool(torch.isfinite(last).all()), f"path {name}: non-finite prefill logits")
+    comps = family_cache_components(cfg, cache)
+    for k, t in comps.items():
+        check(bool(torch.isfinite(t).all()), f"path {name}: non-finite prefill cache {k}")
+    shape = next(v for v in batch.values() if v.dim() >= 2).shape
+    toks = shape[0] * shape[1]
+    log(f"  prefill_step on {tuple(shape)}: {ms:.1f} ms by CUDA events ({toks / ms * 1e3:,.0f} "
+        f"tokens/s), {host:.1f} ms host clock on the first call, peak allocation {peak:.2f} GB; "
+        f"logits {tuple(last.shape)} finite, cache "
+        + ", ".join(f"{k} {tuple(t.shape)}" for k, t in comps.items()))
+    if plans.calls:
+        log(f"  kept share of each MoE layer's plan: {[round(x, 4) for x in plans.kept()]}")
+    if name != "W":  # W's prefill takes ~3 ms of host-bound launches
+        profile_share(f"{name}'s prefill_step", lambda: step(model, batch), dev)
+    return last, cache, plans
+
+
+def serve_steps(name, cfg, model, tok, cache, gen, dev, run_path):
+    """``gen`` greedy ``serve_step``s from ``cache`` fed ``tok`` first:
+    tokens in the padded vocabulary, host seconds; then one more step
+    under ``torch.profiler``."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import padded_vocab
+
+    step = make_serve_step(cfg)
+
+    def loop():
+        nonlocal tok, cache
+        out = []
+        for _ in range(gen):
+            tok, cache = step(model, tok, cache)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+    ms, out = run_path(f"{name} serve", (), lambda: host_ms(loop, dev))
+    out = out.cpu()
+    check(bool(((out >= 0) & (out < padded_vocab(cfg.vocab_size))).all()),
+          f"path {name}: served token ids out of the padded vocabulary")
+    b = out.shape[0]
+    log(f"  {gen} serve steps from the prefill's cache: {ms / 1e3:.2f} s host clock "
+        f"({b * gen / ms * 1e3:.1f} tokens/s); sample {out[0, :8].tolist()}")
+    profile_share(f"one of {name}'s serve steps", lambda: step(model, tok, cache), dev)
+    return cache
+
+
+def path_m(dev, run_path, keep):
+    """Phase 17 (b), M: mixtral-8x22b at full width cut to M_LAYERS
+    layers, bfloat16: ``prefill_step`` on M_BATCH x M_PREFILL tokens (a
+    windowed K5 launch a layer), the kept share of each layer's plan;
+    ``decode_cache_from_prefill`` into a ring of ``sliding_window`` slots,
+    each bit-equal to the prefill's k / v at the position it holds; then
+    M_GEN serve steps from it."""
+    import torch
+
+    from repro_torch.launch.steps import decode_cache_from_prefill
+
+    cfg, model = full_width_model("mixtral_8x22b", dev, num_layers=M_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (M_BATCH, M_PREFILL + 1), generator=g, device=dev,
+                           dtype=torch.int32)
+    _, cache, _ = prefill_run("M", cfg, model, {"tokens": tokens[:, :-1]}, dev, run_path, keep)
+    w = cfg.sliding_window
+    dcache = decode_cache_from_prefill(cfg, cache, M_PREFILL, M_PREFILL + M_GEN + 1)
+    check(dcache["k"].shape[2] == w, f"path M: ring of {dcache['k'].shape[2]} slots, not {w}")
+    pos = torch.arange(M_PREFILL - w, M_PREFILL, device=dev)
+    for i, name in enumerate(("k", "v")):
+        check(torch.equal(raw_bits(dcache[name][:, :, pos % w]), raw_bits(cache[i][:, :, pos])),
+              f"path M: a ring slot of {name} differs from the prefill's {name} at its position")
+    log(f"  decode_cache_from_prefill: a ring of {w} slots holding positions {M_PREFILL - w}-"
+        f"{M_PREFILL - 1}, each slot's k and v bit-equal to the prefill's at its position")
+    del cache
+    serve_steps("M", cfg, model, tokens[:, -1:], dcache, M_GEN, dev, run_path)
+    del model, dcache
+    torch.cuda.empty_cache()
+
+
+def path_v(dev, run_path, keep):
+    """Phase 17 (b), V: qwen2-vl-7b whole, bfloat16: ``prefill_step`` on
+    V_BATCH x V_PREFILL ``embeds`` (N(0, 1 / d_model) from a seeded
+    generator) with the M-RoPE layout V_LAYOUT; then the serve loop
+    answering V_BATCH requests of V_PROMPT prompt tokens with V_GEN
+    tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import prompt_tokens, serve_loop
+    from repro_torch.models import decode_step, init_cache
+
+    cfg, model = full_width_model("qwen2_vl_7b", dev)
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    embeds = (torch.randn((V_BATCH, V_PREFILL, cfg.d_model), generator=g, device=dev)
+              * cfg.d_model**-0.5).to(cfg.activation_dtype)
+    pos3 = torch.from_numpy(mrope_layout(*V_LAYOUT)).to(dev).expand(V_BATCH, 3, V_PREFILL)
+    prefill_run("V", cfg, model, {"embeds": embeds, "positions3": pos3}, dev, run_path, keep)
+    del embeds
+    tokens = prompt_tokens(np.random.default_rng(FAMILY_SEED), cfg.vocab_size, V_BATCH, V_PROMPT)
+    res = run_path("V serve", (), lambda: serve_loop(cfg, model, tokens, V_GEN))
+    check(res.gen.shape == (V_BATCH, V_GEN), f"path V serve: tokens {res.gen.shape}")
+    check(bool(torch.isfinite(res.prompt_logits).all()), "path V serve: non-finite logits")
+    log(f"  serve loop: {V_BATCH} requests, {V_PROMPT} prompt tokens fed in {res.prefill_s:.2f} s "
+        f"({V_PROMPT / res.prefill_s:.1f} steps/s), {V_GEN} tokens generated in "
+        f"{res.decode_s:.2f} s ({V_BATCH * V_GEN / res.decode_s:.1f} tokens/s); sample "
+        f"{res.gen[0, :8].tolist()}")
+    cache = init_cache(cfg, V_BATCH, V_PROMPT + V_GEN + 1, device=dev)
+    tok = torch.from_numpy(tokens[:, :1]).to(dev)
+    decode_step(cfg, model, tok, cache)
+    profile_share("one of V's decode steps", lambda: decode_step(cfg, model, tok, cache), dev)
+    del model, res, cache
+    torch.cuda.empty_cache()
+
+
+def path_w(dev, run_path, keep):
+    """Phase 17 (b), W: whisper-tiny whole, bfloat16: frames (W_BATCH,
+    W_FRAMES, d_model) from a seeded generator, ``prefill_step`` on
+    W_BATCH x W_PREFILL decoder tokens (the encoder's non-causal K5, the
+    decoder's causal and cross K5 a layer each), the decode cache with the
+    frames' cross keys and values, then W_GEN serve steps from it."""
+    import torch
+
+    from repro_torch.launch.steps import decode_cache_from_prefill
+
+    cfg, model = full_width_model("whisper_tiny", dev)
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    frames = torch.randn((W_BATCH, W_FRAMES, cfg.d_model), generator=g, device=dev).to(
+        cfg.activation_dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (W_BATCH, W_PREFILL + 1), generator=g, device=dev,
+                           dtype=torch.int32)
+    _, cache, _ = prefill_run("W", cfg, model, {"tokens": tokens[:, :-1], "frames": frames}, dev,
+                              run_path, keep)
+    dcache = decode_cache_from_prefill(cfg, cache, W_PREFILL, W_PREFILL + W_GEN + 1)
+    check(dcache["xk"].shape[2] == W_FRAMES and dcache["xlen"].tolist() == [W_FRAMES] * W_BATCH,
+          f"path W: cross cache {tuple(dcache['xk'].shape)}, xlen {dcache['xlen'].tolist()}")
+    del cache
+    serve_steps("W", cfg, model, tokens[:, -1:], dcache, W_GEN, dev, run_path)
+    del model, dcache
+    torch.cuda.empty_cache()
+
+
+def family_xcheck(arch, layers, changes, dev, run_path):
+    """Phase 17 (b), float32: ``arch`` at full width cut to ``layers``
+    layers (with the config ``changes``), the prefill of XF_TOKENS tokens
+    at batch 1 against the same tokens decoded one by one, beside the
+    witness (``launch/drift.py``).
+    Every reading (relative L2 of k, v and the logits) must lie within
+    twice the larger of the witness's distance and the one-ulp move (the
+    model's own float32 noise: a shallow model's witness may sit below
+    it), and within XCHECK_REL_L2.  The check applies where no MoE layer of
+    the prefill drops a slot (a decode step at batch 1 never does); where
+    one does, it is reported as not applicable, and the prefill is held to
+    the same prefill through the plain version of K5 instead: equal plans,
+    and within XCHECK_REL_L2.  With ``moe_top_k`` equal to ``moe_experts``
+    no slot can drop, and the check must apply."""
+    import numpy as np
+
+    from repro_torch.launch.drift import prefill_decode_drift
+    from repro_torch.launch.serve import prompt_tokens
+
+    cfg, model = full_width_model(arch, dev, num_layers=layers, dtype="float32",
+                                  param_dtype="float32", **changes)
+    name = arch + "".join(f" {k} {v}" for k, v in changes.items())
+    tokens = prompt_tokens(np.random.default_rng(FAMILY_SEED), cfg.vocab_size, 1, XF_TOKENS)
+    with MoEPlans() as plans:
+        d = run_path(f"{name} float32 cross-check", ("flash_attention",),
+                     lambda: prefill_decode_drift(cfg, model, tokens, FAMILY_SEED),
+                     exact={"flash_attention": 2 * cfg.num_layers})  # two prefills on K5
+    del model
+
+    def fmt(x):
+        return json.dumps({k: float(f"{v:.3g}") for k, v in x.items()})
+
+    errs, wit, ulp = d["prefill_vs_decode"], d["plain_vs_decode"], d["one_ulp_move"]
+    log(f"  float32 prefill vs token-by-token decode of the same (1, {XF_TOKENS}) prompt (decode "
+        f"{d['decode_s']:.1f} s), relative L2: kernels {fmt(errs)}; witness (plain K5) "
+        f"{fmt(wit)}; kernels vs witness {fmt(d['prefill_vs_plain'])}; one-ulp move {fmt(ulp)}")
+    per_layer = [float(f"{v:.2g}") for v in d["layer_state"]]
+    log(f"  per layer, k vs decode: kernels {json.dumps(per_layer)}")
+    applies = True
+    if plans.calls:
+        prefill_plans = [p for n, p in plans.calls if n == XF_TOKENS]
+        kept, decode_kept = plans.kept(XF_TOKENS)[:layers], plans.kept(1)
+        check(min(decode_kept) == 1.0, f"{name}: a decode step at batch 1 dropped a slot")
+        log(f"  kept share of the prefill's MoE plans {[round(x, 4) for x in kept]}; the "
+            f"decode's {len(decode_kept)} MoE calls keep every slot")
+        applies = min(kept) == 1.0
+        check(applies or cfg.moe_top_k < cfg.moe_experts,
+              f"{name}: the prefill dropped slots at top-k {cfg.moe_top_k} of {cfg.moe_experts}")
+    if not applies:
+        same = all(all(bool((a == b).all()) for a, b in zip(p, q))
+                   for p, q in zip(prefill_plans[:layers], prefill_plans[layers:2 * layers]))
+        check(same, f"{name}: the prefill's plans through K5 and through its plain version differ")
+        worst = max(d["prefill_vs_plain"].values())
+        log(f"  prefill vs decode: not applicable, the prefill drops slots (kept share "
+            f"{min(kept):.4f}); the prefill through K5 against the same through the plain "
+            f"version, plans equal: relative L2 {worst:.3g} (limit {XCHECK_REL_L2:g})")
+        check(worst <= XCHECK_REL_L2, f"{name}: K5's prefill vs the plain version's {worst}")
+        return worst
+    over = {k: v for k, v in errs.items() if v > XCHECK_WITNESS_RATIO * max(wit[k], ulp[k])}
+    check(not over, f"{name} cross-check: {over} more than {XCHECK_WITNESS_RATIO} x the larger of "
+          f"the witness's {wit} and the one-ulp move {ulp}")
+    worst = max(errs.values())
+    check(worst <= XCHECK_REL_L2, f"{name} cross-check: relative L2 {errs} > {XCHECK_REL_L2}")
+    return worst
+
+
+def time_k5_model_shapes(keep, dev, errs):
+    """Phase 17 (c): K5 on the inputs of its first call of each kind in
+    M's, V's and W's prefills (``time_k5``)."""
+    out = []
+    for (path, qs, ks, causal, win), ((q, k, v), _) in keep.items():
+        b, sq, h, hd = qs
+        shape = (f"path {path}: q ({b}, {sq}, {h}, {hd}), k, v ({b}, {ks[1]}, {ks[2]}, {hd}) "
+                 f"{str(q.dtype)[6:]}, {'causal' if causal else 'non-causal'}"
+                 + (f", window {win}" if win else ""))
+        t = time_k5(q, k, v, causal, win, dev, shape)
+        errs["flash_attention"] = max(errs["flash_attention"], t["max_abs_err"])
+        out.append(dict(shape=shape, **t))
+    return out
+
+
+def phase17(gold: dict, dev, run_path, errs) -> list:
+    """The moe, vlm and encdec families: (a) the reduced records, (b) M,
+    V and W at full width in bfloat16 and the float32 cross-checks of M
+    and V, (c) K5 timed at the shapes of M's, V's and W's prefills.
+    Returns (c)'s entries."""
+    import torch
+
+    t0 = time.perf_counter()
+    for rec in gold["records"]:
+        family_golden_check(rec, dev, run_path)
+    keep = {}
+    path_m(dev, run_path, keep)
+    path_v(dev, run_path, keep)
+    path_w(dev, run_path, keep)
+    for arch, layers, changes in XF_CASES:
+        family_xcheck(arch, layers, changes, dev, run_path)
+        torch.cuda.empty_cache()
+    # W's causal decoder self-attention (448 positions, hd 64) is left out:
+    # path F times K5 causal at hd 64
+    keep = {key: call for key, call in keep.items() if not (key[0] == "W" and key[3])}
+    shapes = time_k5_model_shapes(keep, dev, errs)
+    del keep
+    torch.cuda.empty_cache()
+    log(f"  phase 17 seconds {time.perf_counter() - t0:.1f}")
+    return shapes
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2844,7 +3354,7 @@ def main() -> int:
         return 2
     if not (ROOT / "src" / "repro_torch").is_dir() or not all(
             g.exists() for g in (GOLDEN, GOLDEN_EVOLVING, GOLDEN_LM, GOLDEN_GRID, GOLDEN_SHARDED,
-                                 GOLDEN_STREAM_SERVE, GOLDEN_TRAIN) + RESULTS):
+                                 GOLDEN_STREAM_SERVE, GOLDEN_TRAIN, GOLDEN_FAMILIES) + RESULTS):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch, tests/data and results are missing)", file=sys.stderr)
         return 2
@@ -3001,7 +3511,7 @@ def main() -> int:
         run_path(rec["name"], lm, lambda: lm_golden_check(rec, dev))
 
     phase(f"phase 12: main path F, zamba2-1.2b at full width (bfloat16): prefill "
-          f"{PATH_F_BATCH} x {PATH_F_PREFILL}, serve {PATH_F_BATCH} x {PATH_F_PROMPT} + "
+          f"{PATH_F_BATCH} x {PATH_F_PREFILL}, serve {PATH_F_BATCH} x {PATH_F_SERVE_PROMPT} + "
           f"{PATH_F_GEN}, float32 cross-check, K5 and K6 times")
     kernels += path_f(dev, run_path, errs, totals)
 
@@ -3013,7 +3523,7 @@ def main() -> int:
 
     phase("phase 14: sharded and parallel: S-parity (bfs/comdblp at 16,384-access shards) under "
           "the fused and set_parallel engines, S-full (bfs/road-8m at 4,194,304-access shards), "
-          "the scheduler's pool (G under workers=2 and None, the mixed grid), spawn timing")
+          "the scheduler's pool (G under workers=2 and None, the mixed grid)")
     phase14(json.loads(GOLDEN_SHARDED.read_text()), grid, dev, run_path, calib)
 
     phase("phase 15: stream and serve protocols through Experiment: ST-drift and SV-contention "
@@ -3026,6 +3536,14 @@ def main() -> int:
           "autograd guard, smollm-360m whole through the launcher (10 steps, checkpoint, resume "
           "to 15)")
     phase16(json.loads(GOLDEN_TRAIN.read_text()), dev, run_path)
+
+    phase("phase 17: the moe, vlm and encdec families: the reduced mixtral, qwen2-vl and whisper "
+          "against the JAX package's records; M (mixtral-8x22b, 4 layers), V (qwen2-vl-7b) and W "
+          "(whisper-tiny) at full width in bfloat16; float32 cross-checks of M and V; K5 at their "
+          "shapes")
+    k5 = next(k for k in kernels if k["name"] == "flash_attention")
+    k5["model_shapes"] = phase17(json.loads(GOLDEN_FAMILIES.read_text()), dev, run_path, errs)
+    k5["max_abs_err"] = errs["flash_attention"]
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["name"] in route_totals:

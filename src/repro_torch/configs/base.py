@@ -4,8 +4,7 @@
 Every assigned architecture is a :class:`ModelConfig` in its own module
 (``src/repro_torch/configs/<id>.py``), selectable via ``--arch <id>`` in
 the launchers.  ``reduced()`` gives the CPU smoke-test variant (same
-family, tiny dims).  The port runs the ``dense``, ``ssm`` and ``hybrid``
-families; the others resolve but raise in ``models.model``.
+family, tiny dims).  The port runs all six families.
 """
 from __future__ import annotations
 

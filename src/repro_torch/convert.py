@@ -87,13 +87,23 @@ def evolving_pair(base, run1, run2, mask1: np.ndarray, mask2: np.ndarray) -> Evo
     )
 
 
+STACKED = ("blocks", "encoder")  # the module lists whose layers JAX stacks
+
+
+def _layer(parts) -> bool:
+    """Whether a parameter name's parts name a layer of a stacked list
+    (``blocks.<i>.*``, ``encoder.<i>.*``; not ``encoder.final_norm``)."""
+    return parts[0] in STACKED and len(parts) > 2 and parts[1].isdigit()
+
+
 def _leaf(tree: Dict[str, Any], name: str):
     """The JAX pytree leaf of a port parameter name: ``blocks.<i>.a.b`` is
-    ``tree["blocks"]["a"]["b"][i]`` (layers stacked on axis 0); any other
-    ``a.b`` is ``tree["a"]["b"]``."""
+    ``tree["blocks"]["a"]["b"][i]`` (layers stacked on axis 0), and so is
+    ``encoder.<i>.a.b`` of ``tree["encoder"]``; any other ``a.b`` (also
+    ``encoder.final_norm``) is ``tree["a"]["b"]``."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        node = tree["blocks"]
+    if _layer(parts):
+        node = tree[parts[0]]
         for key in parts[2:]:
             node = node[key]
         return node[int(parts[1])]
@@ -131,25 +141,27 @@ def lm_tree_from_params(named: Union[LM, Mapping[str, torch.Tensor]]) -> Dict[st
     """The JAX package's pytree layout of tensors named like
     ``LM.named_parameters()`` (an ``LM``, or a dict of its parameters,
     gradients or AdamW ``m`` / ``v``): nested dicts, the layers' tensors
-    stacked on axis 0.  The leaves are detached tensors in their own dtype
-    and on their own device (numpy has no bfloat16): ``.numpy()`` of a
-    float32 CPU leaf is the JAX package's leaf, and ``load_lm_tree`` /
-    ``lm_params_from_numpy`` invert it bit for bit."""
+    (of ``blocks`` and ``encoder``) stacked on axis 0.  The leaves are
+    detached tensors in their own dtype and on their own device (numpy has
+    no bfloat16): ``.numpy()`` of a float32 CPU leaf is the JAX package's
+    leaf, and ``load_lm_tree`` / ``lm_params_from_numpy`` invert it bit
+    for bit."""
     if isinstance(named, LM):
         named = dict(named.named_parameters())
     layers: Dict[Tuple[str, ...], list] = {}
     tree: Dict[str, Any] = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            layers.setdefault(tuple(parts[2:]), []).append((int(parts[1]), t.detach()))
+        if _layer(parts):
+            key = (parts[0],) + tuple(parts[2:])
+            layers.setdefault(key, []).append((int(parts[1]), t.detach()))
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = t.detach()
     for path, ts in layers.items():
-        node = tree.setdefault("blocks", {})
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = torch.stack([t for _, t in sorted(ts, key=lambda x: x[0])])
@@ -160,11 +172,12 @@ def lm_tree_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
     """Path -> shape of every leaf of the JAX package's parameter pytree of
     ``cfg`` (layers stacked on axis 0), from the port's module tree."""
     model = LM(cfg, device="meta")
+    depth = dict(blocks=cfg.num_layers, encoder=cfg.encoder_layers)
     shapes: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            shapes[("blocks", *parts[2:])] = (cfg.num_layers, *p.shape)
+        if _layer(parts):
+            shapes[(parts[0], *parts[2:])] = (depth[parts[0]], *p.shape)
         else:
             shapes[tuple(parts)] = tuple(p.shape)
     return shapes
@@ -179,7 +192,10 @@ def random_lm_tree(cfg, seed: int) -> Dict[str, Any]:
     - ``a_log``: ``log U(0.6, 1.2)`` (decay rates a in [-1.2, -0.6]);
     - ``d_skip``: ``U(0.5, 1.5)``; ``dt_bias``: ``0.1 N(0, 1)``;
     - every matrix: ``N(0, 1 / fan_in)``, fan_in the model width for
-      ``embed`` and ``lm_head`` and the input axis for the others.
+      ``embed`` and ``lm_head`` and the input axis (``shape[-2]``) for the
+      others: the model width for ``router`` ``(L, D, E)`` and the
+      experts' ``wg`` / ``wu`` ``(L, E, D, F)``, ``d_ff`` for their ``wd``
+      ``(L, E, F, D)``.
     """
     rng = np.random.default_rng(seed)
     tree: Dict[str, Any] = {}

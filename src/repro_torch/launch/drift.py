@@ -1,6 +1,6 @@
 """How far ``prefill_step`` and the token-by-token decode path drift apart
-on the same prompt, for a ``hybrid`` model, beside two yardsticks of the
-same shape:
+on the same prompt of tokens, for a model of any family but ``encdec``
+(whose prefill needs frames), beside two yardsticks of the same shape:
 
 - the witness: the same prefill with the plain PyTorch versions of K5 and
   K6 (``blocked_attention_plain``, ``ssd_chunked_plain``) in place of the
@@ -12,9 +12,12 @@ The prefill and the decode differ only in the order of their float32 sums,
 and a deep random model amplifies such differences with depth.  If K5 and
 K6 are right, the prefill drifts from the decode about as far as the
 witness does; a fault in a kernel (a wrong mask, decay or state) gives
-errors of order 1.  ``chip_smoke.py`` holds zamba2-1.2b's float32 prefill
-to this at full width on the card; ``tools/lm_float32_drift.py`` runs it
-at a narrower width.
+errors of order 1.  An MoE layer that drops slots in the prefill (its
+capacity follows the tokens of the call) makes the two differ by order 1
+as well; the caller reads the plans.  ``chip_smoke.py`` holds
+zamba2-1.2b's float32 prefill to this at full width on the card, and
+mixtral's and qwen2-vl's cut in depth; ``tools/lm_float32_drift.py`` runs
+it at a narrower width.
 """
 from __future__ import annotations
 
@@ -49,7 +52,13 @@ def plain_versions():
 
 
 def _layer_states(cache) -> List[torch.Tensor]:
-    """Every Mamba layer's state, in layer order."""
+    """Per layer, in layer order, what the prefill hands the decode: every
+    Mamba layer's state (``hybrid``, ``ssm``), or every layer's keys (the
+    attention families)."""
+    if "state" in cache:
+        return list(cache["state"])
+    if "g_state" not in cache:
+        return list(cache["k"])
     g = cache["g_state"]
     out = [g[i, j] for i in range(g.shape[0]) for j in range(g.shape[1])]
     return out + list(cache["t_state"]) if "t_state" in cache else out
@@ -58,14 +67,15 @@ def _layer_states(cache) -> List[torch.Tensor]:
 def prefill_decode_drift(cfg, model, tokens: np.ndarray, seed: int = 0) -> Dict[str, object]:
     """``tokens`` ``(B, S + 1)`` as the serve loop takes them; the prefill
     runs on the first S.  Returns relative L2 differences, each a dict over
-    ``g_state``, ``g_k``, ``g_v``, (``t_state``,) ``logits``:
-    ``prefill_vs_decode``, ``plain_vs_decode`` (the witness),
-    ``prefill_vs_plain`` and ``one_ulp_move``; per Mamba layer,
-    ``layer_state`` and ``layer_state_plain`` (against the decode); and
-    the serve loop's seconds as ``decode_s``.  ``model`` is left as it
-    was."""
-    if cfg.family != "hybrid":
-        raise ValueError(f"prefill_decode_drift reads a hybrid cache, not {cfg.family!r}")
+    the decode cache's components (``g_state``, ``g_k``, ``g_v``,
+    (``t_state``) for ``hybrid``; ``k``, ``v`` for the attention families)
+    and ``logits``: ``prefill_vs_decode``, ``plain_vs_decode`` (the
+    witness), ``prefill_vs_plain`` and ``one_ulp_move``; per layer (see
+    ``_layer_states``), ``layer_state`` and ``layer_state_plain`` (against
+    the decode); and the serve loop's seconds as ``decode_s``.  ``model``
+    is left as it was."""
+    if cfg.family == "encdec":
+        raise ValueError("prefill_decode_drift feeds tokens alone; an encdec prefill needs frames")
     dev = model.embed.device
     s = tokens.shape[1] - 1
     step = make_prefill_step(cfg)

@@ -1,13 +1,13 @@
-"""Core NN layers: RMSNorm, RoPE, SwiGLU, initializers (the port of
-``repro/models/layers.py``).
+"""Core NN layers: RMSNorm, RoPE / M-RoPE, SwiGLU, initializers (the port
+of ``repro/models/layers.py``).
 
-The dtype casts are the JAX package's: ``rms_norm`` and ``rope`` compute in
-float32 and return the activation dtype; weights are cast to the
-activation dtype before each product.  ``mrope`` waits for the VLM family.
+The dtype casts are the JAX package's: ``rms_norm``, ``rope`` and ``mrope``
+compute in float32 and return the activation dtype; weights are cast to
+the activation dtype before each product.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +41,32 @@ def rope(
     return out.to(x.dtype)
 
 
+def mrope(
+    x: torch.Tensor,  # (..., S, H, hd)
+    positions3: torch.Tensor,  # (..., 3, S): t/h/w position ids
+    sections: Tuple[int, int, int],
+    theta: float = 1e6,
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): rotary half-dims are split into t/h/w
+    sections, each rotated by its own position stream."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _rope_freqs(hd, theta, x.device)  # (half,)
+    # Select which position stream drives each frequency slot.
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.tensor(sections, device=x.device))  # (half,)
+    # positions3: (..., 3, S) -> (..., S, half)
+    moved = positions3.movedim(-2, -1)  # (..., S, 3)
+    pos = torch.gather(moved, -1, sec_id.expand(moved.shape[:-1] + (half,)))
+    ang = pos.float() * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
@@ -61,4 +87,4 @@ def dense_init(
     return (w * std).to(dtype)
 
 
-__all__ = ["dense_init", "rms_norm", "rope", "swiglu"]
+__all__ = ["dense_init", "mrope", "rms_norm", "rope", "swiglu"]

@@ -1,5 +1,6 @@
-"""Model assembly: init / prefill forward / decode for the ``dense``,
-``ssm`` and ``hybrid`` families (the port of ``repro/models/model.py``).
+"""Model assembly: init / prefill forward / decode for all six families
+(``dense``, ``moe``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``; the port of
+``repro/models/model.py``).
 
 The parameters are ``nn.Module``s whose attribute names are the JAX
 package's pytree keys (``blocks.<i>.attn.wq`` is ``params["blocks"]
@@ -8,7 +9,10 @@ over layers (no scan).  The parameters are made with
 ``requires_grad=False``; a trainer turns the gradients on with
 ``model.requires_grad_(True)``.  The hybrid's shared attention block is
 one :class:`DenseLayer` called after every ``hybrid_attn_every`` Mamba
-layers, and the tail layers run after the last group.  ``forward``,
+layers, and the tail layers run after the last group.  The ``encdec``
+family's encoder layers are ``encoder.<i>.*`` (``params["encoder"]
+["attn"]["wq"][i]``) beside the unstacked ``encoder.final_norm``; ``vlm``
+layers are dense layers.  ``forward``,
 ``init_cache`` and ``decode_step`` keep the JAX names and return
 structures.  Unlike the JAX package's functional caches, ``decode_step``
 writes the new token's keys, values and SSM states into the cache's
@@ -22,8 +26,14 @@ backward, and the JAX package differentiates its jnp functions, not its
 Pallas kernels), and with the layers wrapped in ``torch.utils.checkpoint``
 as ``_remat`` says.
 
-``moe``, ``encdec`` and ``vlm`` are still to be ported (``ROADMAP.md``)
-and raise ``NotImplementedError``.
+Frontends are stubs, as in the JAX package: ``embeds`` (B, S, D) stand in
+for a vision encoder's output, ``positions3`` (B, 3, S) are M-RoPE's t/h/w
+position ids, and ``encoder_frames`` (B, Se, D) stand in for the audio
+conv frontend.  Rope is off for cross-attention and for the ``encdec``
+family.  The ``vlm`` decode rotates by plain rope at ``cache_len``, not by
+M-RoPE, as the JAX package's decode does.  The MoE's capacity follows the
+tokens of the call: a prefill routes ``B * S`` tokens, a decode step ``B``,
+so the two drop different slots (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -44,21 +54,16 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 from repro_torch.models.attention import blocked_attention, decode_attention
-from repro_torch.models.layers import dense_init, rms_norm, rope, swiglu
+from repro_torch.models.layers import dense_init, mrope, rms_norm, rope, swiglu
+from repro_torch.models.moe import MoEParams, moe_ffn
 from repro_torch.models.ssm import SSMParams, ssd_chunked, ssm_block, ssm_decode_step
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+DENSE_LAYOUT = ("dense", "vlm", "moe")  # one (k, v) cache a layer
 
 
 def padded_vocab(v: int) -> int:
     return -(-v // 128) * 128
-
-
-def check_family(cfg: ModelConfig):
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port runs "
-            f"{', '.join(FAMILIES)} (ROADMAP.md, queue 1 item 9)")
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -104,6 +109,51 @@ class DenseLayer(nn.Module):
         self.mlp = MLP(cfg, dtype, device)
 
 
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+        self.router = _param((d, e), dtype, device)
+        self.wg = _param((e, d, f), dtype, device)
+        self.wu = _param((e, d, f), dtype, device)
+        self.wd = _param((e, f, d), dtype, device)
+
+    def params(self) -> MoEParams:
+        return MoEParams(self.router, self.wg, self.wu, self.wd)
+
+
+class MoELayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = _param((cfg.d_model,), dtype, device)
+        self.ln2 = _param((cfg.d_model,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.moe = MoE(cfg, dtype, device)
+
+
+class EncDecLayer(nn.Module):
+    """A decoder layer of the encoder-decoder: self-attention, then
+    cross-attention over the encoder's output, then SwiGLU."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = _param((cfg.d_model,), dtype, device)
+        self.ln2 = _param((cfg.d_model,), dtype, device)
+        self.ln3 = _param((cfg.d_model,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.xattn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+
+class Encoder(nn.ModuleList):
+    """The encoder's dense layers (``encoder.<i>``) and its final norm
+    (``encoder.final_norm``, one vector, not stacked)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(DenseLayer(cfg, dtype, device) for _ in range(cfg.encoder_layers))
+        self.final_norm = _param((cfg.d_model,), dtype, device)
+
+
 class SSM(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -136,7 +186,8 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        check_family(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
         if device is not None and torch.device(device).type == "meta":
             device = torch.device("meta")
         else:
@@ -148,10 +199,13 @@ class LM(nn.Module):
         self.final_norm = _param((cfg.d_model,), dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((vp, cfg.d_model), dtype, device)
-        layer = DenseLayer if cfg.family == "dense" else MambaLayer
+        layer = {"dense": DenseLayer, "vlm": DenseLayer, "moe": MoELayer, "ssm": MambaLayer,
+                 "hybrid": MambaLayer, "encdec": EncDecLayer}[cfg.family]
         self.blocks = nn.ModuleList(layer(cfg, dtype, device) for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared_attn = DenseLayer(cfg, dtype, device)
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, dtype, device)
 
     @property
     def head(self) -> torch.Tensor:
@@ -172,13 +226,37 @@ def _fill_attention(p: Attention, g):
         p.kn.fill_(1.0)
 
 
+def _fill_mlp(p: MLP, g):
+    for name in ("wg", "wu", "wd"):
+        w = getattr(p, name)
+        w.copy_(dense_init(g, w.shape, in_axis=0, dtype=w.dtype))
+
+
 def _fill_dense(layer: DenseLayer, g):
     layer.ln1.fill_(1.0)
     layer.ln2.fill_(1.0)
     _fill_attention(layer.attn, g)
+    _fill_mlp(layer.mlp, g)
+
+
+def _fill_moe(layer: MoELayer, g):
+    layer.ln1.fill_(1.0)
+    layer.ln2.fill_(1.0)
+    _fill_attention(layer.attn, g)
+    m = layer.moe
+    # fan-in: the model width for the router, wg and wu; d_ff for wd
+    m.router.copy_(dense_init(g, m.router.shape, in_axis=0, dtype=m.router.dtype))
     for name in ("wg", "wu", "wd"):
-        w = getattr(layer.mlp, name)
-        w.copy_(dense_init(g, w.shape, in_axis=0, dtype=w.dtype))
+        w = getattr(m, name)
+        w.copy_(dense_init(g, w.shape, in_axis=1, dtype=w.dtype))
+
+
+def _fill_encdec(layer: EncDecLayer, g):
+    for ln in (layer.ln1, layer.ln2, layer.ln3):
+        ln.fill_(1.0)
+    _fill_attention(layer.attn, g)
+    _fill_attention(layer.xattn, g)
+    _fill_mlp(layer.mlp, g)
 
 
 def _fill_mamba(layer: MambaLayer, g):
@@ -205,10 +283,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> L
     if hasattr(model, "lm_head"):
         model.lm_head.copy_(
             dense_init(generator, model.lm_head.shape, in_axis=1, dtype=model.lm_head.dtype))
+    fill = {"dense": _fill_dense, "vlm": _fill_dense, "moe": _fill_moe, "ssm": _fill_mamba,
+            "hybrid": _fill_mamba, "encdec": _fill_encdec}[cfg.family]
     for layer in model.blocks:
-        (_fill_dense if cfg.family == "dense" else _fill_mamba)(layer, generator)
+        fill(layer, generator)
     if cfg.family == "hybrid":
         _fill_dense(model.shared_attn, generator)
+    if cfg.family == "encdec":
+        for layer in model.encoder:
+            _fill_dense(layer, generator)
+        model.encoder.final_norm.fill_(1.0)
     return model
 
 
@@ -217,27 +301,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> L
 # --------------------------------------------------------------------------
 
 
-def _qkv(p: Attention, cfg: ModelConfig, x):
+def _qkv(p: Attention, cfg: ModelConfig, x, src=None):
+    """q of ``x``, k and v of ``src`` (``x`` but for cross-attention)."""
+    src = x if src is None else src
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ p.wq.to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p.wk.to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+    k = (src @ p.wk.to(x.dtype)).reshape(b, src.shape[1], cfg.num_kv_heads, hd)
+    v = (src @ p.wv.to(x.dtype)).reshape(b, src.shape[1], cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.qn)
         k = rms_norm(k, p.kn)
     return q, k, v
 
 
-def _attention_block(p: Attention, cfg: ModelConfig, x, positions, attend=blocked_attention):
-    """Full-sequence self-attention (prefill: ``blocked_attention``, K5 on
-    the card; training: its plain version)."""
+def _apply_rope(cfg: ModelConfig, q, k, positions, positions3=None):
+    if cfg.mrope and positions3 is not None:
+        return (mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta),
+                mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta))
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+
+
+def _attention_block(p: Attention, cfg: ModelConfig, x, positions, attend=blocked_attention,
+                     positions3=None, causal=True, kv_x=None):
+    """Full-sequence attention (prefill: ``blocked_attention``, K5 on the
+    card; training: its plain version); ``kv_x`` given is cross-attention
+    over it."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
-    if cfg.rope_theta:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    o = attend(q, k, v, causal=True, sliding_window=cfg.sliding_window)
+    q, k, v = _qkv(p, cfg, x, kv_x)
+    if kv_x is None and cfg.rope_theta and cfg.family != "encdec":
+        q, k = _apply_rope(cfg, q, k, positions, positions3)
+    o = attend(q, k, v, causal=causal, sliding_window=cfg.sliding_window)
     o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return o @ p.wo.to(x.dtype), (k, v)
 
@@ -247,9 +341,12 @@ def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache
     into ``k_cache`` / ``v_cache`` (B, S, KV, hd) in place."""
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
-    if cfg.rope_theta:
+    if cfg.rope_theta and cfg.family != "encdec":  # plain rope, also for vlm
         q = rope(q, cache_len[:, None], cfg.rope_theta)
         k = rope(k, cache_len[:, None], cfg.rope_theta)
+    # As in the JAX package, the ring branch is taken only where the cache
+    # holds more than the window; init_cache sizes it to the window, so
+    # past it the newest position is written to the last slot.
     s_max = k_cache.shape[1]
     ring = bool(cfg.sliding_window) and cfg.sliding_window < s_max
     if ring:
@@ -265,19 +362,83 @@ def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache
     return o.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim) @ p.wo.to(x.dtype)
 
 
-def _dense_layer(layer: DenseLayer, cfg, x, positions, attend=blocked_attention):
+def _mlp(p: MLP, h):
+    return swiglu(h, p.wg, p.wu, p.wd)
+
+
+def _dense_layer(layer: DenseLayer, cfg, x, positions, positions3=None,
+                 attend=blocked_attention):
+    h = rms_norm(x, layer.ln1)
+    attn_out, kv = _attention_block(layer.attn, cfg, h, positions, attend, positions3)
+    x = x + attn_out
+    return x + _mlp(layer.mlp, rms_norm(x, layer.ln2)), kv
+
+
+def _moe_layer(layer: MoELayer, cfg, x, positions, positions3=None, attend=blocked_attention):
+    """Returns ``(x, aux, (k, v))``."""
+    b, s, d = x.shape
+    h = rms_norm(x, layer.ln1)
+    attn_out, kv = _attention_block(layer.attn, cfg, h, positions, attend, positions3)
+    x = x + attn_out
+    h = rms_norm(x, layer.ln2)
+    y, aux, _ = moe_ffn(h.reshape(b * s, d), layer.moe.params(), cfg.moe_top_k)
+    return x + y.reshape(b, s, d), aux, kv
+
+
+def _encoder_layer(layer: DenseLayer, cfg, x, positions, attend=blocked_attention):
+    h = rms_norm(x, layer.ln1)
+    o, _ = _attention_block(layer.attn, cfg, h, positions, attend, causal=False)
+    x = x + o
+    return x + _mlp(layer.mlp, rms_norm(x, layer.ln2))
+
+
+def _encdec_layer(layer: EncDecLayer, cfg, x, positions, enc_out, attend=blocked_attention):
+    """Returns ``(x, ((k, v), (xk, xv)))``."""
     h = rms_norm(x, layer.ln1)
     attn_out, kv = _attention_block(layer.attn, cfg, h, positions, attend)
     x = x + attn_out
-    h = rms_norm(x, layer.ln2)
-    return x + swiglu(h, layer.mlp.wg, layer.mlp.wu, layer.mlp.wd), kv
+    h = rms_norm(x, layer.ln3)
+    xo, xkv = _attention_block(layer.xattn, cfg, h, positions, attend, causal=False,
+                               kv_x=enc_out)
+    x = x + xo
+    return x + _mlp(layer.mlp, rms_norm(x, layer.ln2)), (kv, xkv)
 
 
 def _dense_decode(layer: DenseLayer, cfg, x, k_cache, v_cache, cache_len):
     h = rms_norm(x, layer.ln1)
     x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len)
+    return x + _mlp(layer.mlp, rms_norm(x, layer.ln2))
+
+
+def _moe_decode(layer: MoELayer, cfg, x, k_cache, v_cache, cache_len):
+    """The MoE routes the step's ``B`` tokens: capacity ``max(int(1.25 B k
+    / E), 1)``, so a decode step can drop slots a prefill keeps."""
+    b = x.shape[0]
+    h = rms_norm(x, layer.ln1)
+    x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len)
     h = rms_norm(x, layer.ln2)
-    return x + swiglu(h, layer.mlp.wg, layer.mlp.wu, layer.mlp.wd)
+    y, _, _ = moe_ffn(h.reshape(b, -1), layer.moe.params(), cfg.moe_top_k)
+    return x + y.reshape(b, 1, -1)
+
+
+def _cross_decode(p: Attention, cfg, x, xk, xv, xlen):
+    """One token's cross-attention over the first ``xlen`` encoder
+    positions of ``xk`` / ``xv`` (no qk-norm and no rope, as in the JAX
+    package).  With ``xlen`` 0 (an empty cross cache) every score is the
+    finite ``NEG_INF``: the softmax is uniform over the cache's zeros and
+    the output is zero, not NaN."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = (x @ p.wq.to(x.dtype)).reshape(b, 1, cfg.num_heads, hd)
+    o = decode_attention(q, xk, xv, xlen)
+    return o.reshape(b, 1, cfg.num_heads * hd) @ p.wo.to(x.dtype)
+
+
+def _encdec_decode(layer: EncDecLayer, cfg, x, k_cache, v_cache, xk, xv, cache_len, xlen):
+    h = rms_norm(x, layer.ln1)
+    x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len)
+    x = x + _cross_decode(layer.xattn, cfg, rms_norm(x, layer.ln3), xk, xv, xlen)
+    return x + _mlp(layer.mlp, rms_norm(x, layer.ln2))
 
 
 def _mamba_layer(layer: MambaLayer, cfg, x, scan=ssd_chunked):
@@ -307,15 +468,20 @@ def _logits(params: LM, x):
 
 
 class Layers(NamedTuple):
-    """The layer functions of one forward: a dense layer, the hybrid's
-    shared block and a Mamba layer."""
+    """The layer functions of one forward: a dense (and vlm) layer, the
+    hybrid's shared block, a Mamba layer, an MoE layer, an encoder layer
+    and an encoder-decoder layer."""
 
     dense: Any
     shared: Any
     mamba: Any
+    moe: Any
+    encoder: Any
+    encdec: Any
 
 
-SERVE_LAYERS = Layers(_dense_layer, _dense_layer, _mamba_layer)
+SERVE_LAYERS = Layers(_dense_layer, _dense_layer, _mamba_layer, _moe_layer, _encoder_layer,
+                      _encdec_layer)
 
 
 def _products_saved(ctx, op, *args, **kwargs):
@@ -348,31 +514,70 @@ def _remat(fn, cfg: ModelConfig):
 
 def train_layers(cfg: ModelConfig) -> Layers:
     """The training forward's layers: attention and the SSD scan through
-    their plain versions, the dense and the Mamba layer under ``_remat``
-    (the hybrid's shared block is not, as in the JAX package)."""
-    dense = functools.partial(_dense_layer, attend=blocked_attention_plain)
+    their plain versions, every layer under ``_remat`` but the hybrid's
+    shared block, as in the JAX package."""
+    plain = dict(attend=blocked_attention_plain)
+    dense = functools.partial(_dense_layer, **plain)
     mamba = functools.partial(_mamba_layer, scan=ssd_chunked_plain)
-    return Layers(_remat(dense, cfg), dense, _remat(mamba, cfg))
+    return Layers(_remat(dense, cfg), dense, _remat(mamba, cfg),
+                  _remat(functools.partial(_moe_layer, **plain), cfg),
+                  _remat(functools.partial(_encoder_layer, **plain), cfg),
+                  _remat(functools.partial(_encdec_layer, **plain), cfg))
 
 
-def _forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, return_cache: bool,
-             layers: Layers):
-    """The body of ``forward`` and of ``loss_fn``'s forward."""
-    check_family(cfg)
+def _stack(pairs):
+    """``(torch.stack(firsts), torch.stack(seconds))`` of ``(a, b)``
+    pairs: per-layer ``(k, v)`` into the stacked cache."""
+    return torch.stack([a for a, _ in pairs]), torch.stack([b for _, b in pairs])
+
+
+def _encoder_forward(cfg: ModelConfig, enc: Encoder, frames: torch.Tensor, layers: Layers):
+    """Sinusoidal positions (whisper-style), the non-causal encoder layers,
+    the final norm."""
     dt = cfg.activation_dtype
-    x = F.embedding(tokens.long(), params.embed.to(dt))
+    x = frames.to(dt)
+    b, s, d = x.shape
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=x.device)
+                      / max(half - 1, 1) * torch.log(torch.tensor(10000.0)))
+    ang = torch.arange(s, device=x.device)[:, None] * freqs[None, :]
+    x = x + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dt)[None]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for layer in enc:
+        x = layers.encoder(layer, cfg, x, positions)
+    return rms_norm(x, enc.final_norm)
+
+
+def _forward(cfg: ModelConfig, params: LM, tokens, return_cache: bool, layers: Layers,
+             embeds=None, positions3=None, encoder_frames=None):
+    """The body of ``forward`` and of ``loss_fn``'s forward."""
+    dt = cfg.activation_dtype
+    if embeds is not None:
+        x = embeds.to(dt)
+    else:
+        x = F.embedding(tokens.long(), params.embed.to(dt))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = None
-    if cfg.family == "dense":
+    if cfg.family in DENSE_LAYOUT or cfg.family == "encdec":
+        if cfg.family == "encdec":
+            enc_out = _encoder_forward(cfg, params.encoder, encoder_frames, layers)
         kvs = []
         for layer in params.blocks:
-            x, kv = layers.dense(layer, cfg, x, positions)
+            if cfg.family == "moe":
+                x, a, kv = layers.moe(layer, cfg, x, positions, positions3)
+                aux = aux + a
+            elif cfg.family == "encdec":
+                x, kv = layers.encdec(layer, cfg, x, positions, enc_out)
+            else:
+                x, kv = layers.dense(layer, cfg, x, positions, positions3)
             if return_cache:
                 kvs.append(kv)
-        if return_cache:
-            caches = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+        if return_cache and cfg.family == "encdec":
+            caches = (_stack([kv for kv, _ in kvs]), _stack([xkv for _, xkv in kvs]))
+        elif return_cache:
+            caches = _stack(kvs)
     elif cfg.family == "ssm":
         states = []
         for layer in params.blocks:
@@ -390,16 +595,23 @@ def _forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor, return_cache: b
 def forward(
     cfg: ModelConfig,
     params: LM,
-    tokens: torch.Tensor,  # (B, S)
+    tokens,  # (B, S), or None when embeds are given
     *,
+    embeds=None,  # (B, S, D) stub frontends
+    positions3=None,  # (B, 3, S) M-RoPE
+    encoder_frames=None,  # (B, Se, D) audio stub
     return_cache: bool = False,
 ):
     """Returns ``(logits, aux_loss, cache_or_None)``.  The cache is
-    ``(k, v)`` stacked over layers ``(L, B, S, KV, hd)`` for ``dense``, the
-    states ``(L, B, H, P, N)`` for ``ssm``, and ``(g_states (groups, every,
-    B, H, P, N), (g_k, g_v) (groups, B, S, KV, hd), t_states (rest, B, H,
-    P, N) or None)`` for ``hybrid``."""
-    return _forward(cfg, params, tokens, return_cache, SERVE_LAYERS)
+    ``(k, v)`` stacked over layers ``(L, B, S, KV, hd)`` for ``dense``,
+    ``vlm`` and ``moe``; ``((k, v), (xk, xv))`` for ``encdec``, the cross
+    pair ``(L, B, Se, KV, hd)``; the states ``(L, B, H, P, N)`` for
+    ``ssm``; and ``(g_states (groups, every, B, H, P, N), (g_k, g_v)
+    (groups, B, S, KV, hd), t_states (rest, B, H, P, N) or None)`` for
+    ``hybrid``.  ``aux_loss`` is the MoE layers' load-balancing loss summed
+    over layers (0 for the other families)."""
+    return _forward(cfg, params, tokens, return_cache, SERVE_LAYERS, embeds, positions3,
+                    encoder_frames)
 
 
 def _hybrid_forward(cfg, params: LM, x, positions, return_cache, layers: Layers):
@@ -433,15 +645,17 @@ def _hybrid_forward(cfg, params: LM, x, positions, return_cache, layers: Layers)
 
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(loss, {"nll", "aux"})`` of a batch of ``tokens`` and ``labels``
-    (B, S), differentiable in the parameters that require gradients: the
-    mean of ``logsumexp`` minus the label's logit over float32 logits, the
-    padded vocabulary masked to -1e30, plus ``0.01 * aux``."""
-    unported = set(batch) - {"tokens", "labels"}
-    if unported:
-        raise NotImplementedError(
-            f"batch inputs {sorted(unported)} (frontends) are still to be ported (ROADMAP.md)")
-    logits, aux, _ = _forward(cfg, params, batch["tokens"], False, train_layers(cfg))
+    """``(loss, {"nll", "aux"})`` of a batch of ``labels`` (B, S) and
+    ``tokens`` (B, S) or ``embeds`` (B, S, D), with ``positions3`` and
+    ``frames`` where the family takes them, differentiable in the
+    parameters that require gradients: the mean of ``logsumexp`` minus the
+    label's logit over float32 logits, the padded vocabulary masked to
+    -1e30, plus ``0.01 * aux``."""
+    unknown = set(batch) - {"tokens", "labels", "embeds", "positions3", "frames"}
+    if unknown:
+        raise ValueError(f"unknown batch inputs {sorted(unknown)}")
+    logits, aux, _ = _forward(cfg, params, batch.get("tokens"), False, train_layers(cfg),
+                              batch.get("embeds"), batch.get("positions3"), batch.get("frames"))
     labels = batch["labels"].long()
     vp = logits.shape[-1]
     logits = logits.float()
@@ -463,7 +677,6 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None):
     """Allocate the decode cache of one model (zeros) on ``device``."""
-    check_family(cfg)
     device = resolve_device(device)
     dt = dtype or cfg.activation_dtype
     hd = cfg.resolved_head_dim
@@ -474,12 +687,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         return torch.zeros(shape, dtype=dtype, device=device)
 
     length = zeros((batch,), torch.int32)
-    if cfg.family == "dense":
-        return {
-            "k": zeros((L, batch, eff_len, cfg.num_kv_heads, hd), dt),
-            "v": zeros((L, batch, eff_len, cfg.num_kv_heads, hd), dt),
-            "len": length,
-        }
+    kv = (L, batch, eff_len, cfg.num_kv_heads, hd)
+    if cfg.family in DENSE_LAYOUT:
+        return {"k": zeros(kv, dt), "v": zeros(kv, dt), "len": length}
+    if cfg.family == "encdec":
+        return {"k": zeros(kv, dt), "v": zeros(kv, dt), "xk": zeros(kv, dt), "xv": zeros(kv, dt),
+                "xlen": zeros((batch,), torch.int32), "len": length}
     d_inner = cfg.ssm_expand * cfg.d_model
     h = d_inner // cfg.ssm_head_dim
     state = (batch, h, cfg.ssm_head_dim, cfg.ssm_state)
@@ -508,16 +721,20 @@ def decode_step(
 ):
     """serve_step: one new token against the cache.  Returns ``(logits,
     cache)``; the cache's tensors are updated in place."""
-    check_family(cfg)
     if mesh is not None or seq_sharded:
         raise NotImplementedError(
             "the sequence-sharded decode needs a device mesh; still to be ported (ROADMAP.md)")
     dt = cfg.activation_dtype
     x = F.embedding(tokens.long(), params.embed.to(dt))
     cache_len = cache["len"]
-    if cfg.family == "dense":
+    if cfg.family in DENSE_LAYOUT:
+        step = _moe_decode if cfg.family == "moe" else _dense_decode
         for i, layer in enumerate(params.blocks):
-            x = _dense_decode(layer, cfg, x, cache["k"][i], cache["v"][i], cache_len)
+            x = step(layer, cfg, x, cache["k"][i], cache["v"][i], cache_len)
+    elif cfg.family == "encdec":
+        for i, layer in enumerate(params.blocks):
+            x = _encdec_decode(layer, cfg, x, cache["k"][i], cache["v"][i], cache["xk"][i],
+                               cache["xv"][i], cache_len, cache["xlen"])
     elif cfg.family == "ssm":
         for i, layer in enumerate(params.blocks):
             x, st = _mamba_decode(layer, cfg, x, cache["state"][i])
@@ -539,6 +756,7 @@ def decode_step(
 __all__ = [
     "FAMILIES",
     "LM",
+    "MoE",
     "decode_step",
     "forward",
     "init_cache",

@@ -11,10 +11,15 @@ sum, K3 (the BaseΔ tile kernels) and K4 (the AMC gather kernels) with
 ``nvcc`` and holds each against its plain PyTorch version bit for bit, on
 the families ``chip_smoke.py`` uses; K5 (``flash_attention``) and K6
 (``ssd_scan``) against their plain versions within ``chip_smoke.py``'s
-stated tolerances; the reduced zamba2 on the card against the JAX
-package's golden record (``tests/data/torch_port_golden_lm.json``); K5 and
-K6 refusing inputs that require grad; and the training gradients of
-``loss_fn`` on the card against the CPU's.
+stated tolerances, K5 also alone at the shapes of the moe, vlm and encdec
+families (cross-attention 448 x 1,500, GQA groups of 6 and 7 at hd 128, a
+4,096-key window over 8,192 positions); the reduced zamba2 on the card
+against the JAX package's golden record
+(``tests/data/torch_port_golden_lm.json``), and the reduced mixtral,
+qwen2-vl and whisper against theirs
+(``tests/data/torch_port_golden_families.json``); K5 and K6 refusing
+inputs that require grad; and the training gradients of ``loss_fn`` on
+the card against the CPU's.
 """
 import os
 import sys
@@ -60,6 +65,26 @@ def test_lm_kernels_match_plain_on_the_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.k5_families(dev)  # each raises on an element outside its tolerance
     chip_smoke.k6_families(dev)
+
+
+@pytest.mark.cuda
+def test_reduced_families_match_golden_on_the_card():
+    """The reduced mixtral, qwen2-vl and whisper: serving through K5 and
+    five training steps (no K5) against the JAX package's records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import json
+
+    import chip_smoke
+
+    from repro_torch.kernels.flash_attn.flash_attn import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = flash_attention.launches
+    for rec in json.loads(chip_smoke.GOLDEN_FAMILIES.read_text())["records"]:
+        chip_smoke.family_golden_check(rec, torch.device("cuda", 0))
+    assert flash_attention.launches > before
 
 
 @pytest.mark.cuda

@@ -133,15 +133,6 @@ def test_init_params_has_the_jax_shapes_and_scales(variant):
             assert abs(float(p.std()) * fan_in**0.5 - 1) < 0.1, name
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "whisper_tiny", "qwen2_vl_7b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8)
-
-
 # ------------------------------------------------------------ forward, decode
 
 
