@@ -71,7 +71,7 @@ Phases (any failure exits non-zero; each prints its seconds):
     parameters from ``init_params`` with a seed):
     ``prefill_step`` on 4 prompts x 4,096 tokens (6 K5 and 38 K6 launches,
     finite logits), timed by host clock and CUDA events and once more under
-    ``torch.profiler``; the serve loop answering 4 requests of 128-token
+    ``torch.profiler``; the serve loop answering 4 requests of 64-token
     prompts with 32 tokens, and one decode step under ``torch.profiler``;
     a float32 cross-check of the prefill's caches and logits against the
     same 256 tokens decoded one by one, beside the same prefill through the
@@ -177,12 +177,25 @@ Phases (any failure exits non-zero; each prints its seconds):
     K5 on the first call of each kind of M's, V's and W's prefills, timed
     beside its plain version, its bound and
     ``scaled_dot_product_attention``.
+18. Cell L, zamba2-1.2b at ``long_500k`` (bfloat16, ``init_params`` with a
+    seed): ``prefill_step`` on 1 x 8,192 tokens (K5 x 6, K6 x 38), the
+    decode cache of 524,288 positions (25.8 GB) from it and 16 greedy
+    ``serve_step``s, then the cache filled with seeded N(0, 1) keys and
+    values to 524,280 and 8 more (the inserts land in the last slots);
+    each step beside a witness (the same step with the fed token's
+    embedding row moved one ulp).  Then the same on two spawned ranks of a
+    gloo group on the one card, each building only its half of the cache
+    (``decode_cache_from_prefill(seq_shard=)``) and stepping
+    ``make_serve_step(cfg, mesh, seq_sharded=True)`` fed the unsharded
+    run's tokens: each step's logits within twice the witness's distance
+    and its token the unsharded one's (the margin rule).  Prints the median
+    step ms of both runs, the cache's read bound, each run's peak.
 
 Every launch counter is set to 0 just before each path (A, B, C, D,
 bfs_do, the gather demo, K3 on D's entries, E, the reduced LMs, F's
 prefill, serve loop and float32 cross-check, each cell of phase 13,
-each run of phases 14 and 15, each training run of phase 16 and each
-serving and training run of phase 17) and read
+each run of phases 14 and 15, each training run of phase 16, each
+serving and training run of phase 17 and cell L's prefill) and read
 just after; each
 kernel must have launched on the paths that run it, and the ``launches``
 of the kernels line are the sums over those paths.  Prints the card's
@@ -193,6 +206,7 @@ missing.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import re
@@ -2427,8 +2441,10 @@ def protocol_cell(name: str, specs, prefetchers, dev, root=None, workers=1, llc=
 def phase15(gold: dict, dev, run_path):
     """Stream and serve protocols through ``Experiment`` on the card:
     ST-drift and SV-contention against the committed ``results/`` documents,
-    each from a fresh artifact root (then under ``workers=2`` from it, whose
-    rows must equal the serial rows), ST-full, SV-full, ST-models and
+    each from a fresh artifact root (ST-drift then under ``workers=2`` from
+    it, whose rows must equal the serial rows: its document records that;
+    SV-contention's pool run is held on the CPU, and the pool on the card by
+    phase 14), ST-full, SV-full, ST-models and
     SV-rate against ``tests/data/torch_port_golden_stream_serve.json`` on an
     in-memory cache (no run reads their artifacts; the saves cost 37-65 %
     of such a cell, and ST-drift and SV-contention measure them), and the
@@ -2469,21 +2485,16 @@ def phase15(gold: dict, dev, run_path):
 
             serve = ServeSpec(tenants=tuple(TenantSpec(k, d, seed=s)
                                             for k, d, s in CONTENTION["tenants"]))
-            runs = {w: run_path(f"SV-contention workers={w}", graph if w == 1 else ("lru_hits",),
-                                lambda: protocol_cell(f"SV-contention (workers={w})", [serve],
-                                                      CONTENTION["prefetchers"], dev,
-                                                      tmp / f"contention{w}", workers=w,
-                                                      llc=llc),
-                                exact=None if w == 1 else scored_only)
-                    for w in (1, 2)}
-            check(rows_equal(runs[1].rows(), runs[2].rows()),
-                  "SV-contention: workers=2 rows differ from serial")
-            doc = jsonable(contention_document(runs[1], serve))
+            res = run_path("SV-contention workers=1", graph,
+                           lambda: protocol_cell("SV-contention (workers=1)", [serve],
+                                                 CONTENTION["prefetchers"], dev,
+                                                 tmp / "contention1", workers=1, llc=llc))
+            doc = jsonable(contention_document(res, serve))
             want = json.loads((ROOT / "results" / "contention_comdblp_k3.json").read_text())
             check(doc == want, "SV-contention: the contention document differs from "
                   "results/contention_comdblp_k3.json")
-            log("  SV-contention: == results/contention_comdblp_k3.json; workers=2 == serial")
-            del runs
+            log("  SV-contention: == results/contention_comdblp_k3.json")
+            del res
 
             for name in ("ST-full", "SV-full", "ST-models", "SV-rate"):
                 cell = gold["cells"][name]
@@ -3306,8 +3317,499 @@ def phase17(gold: dict, dev, run_path, errs) -> list:
     return shapes
 
 
-# ------------------------------------------------------------ main
+# ------------------------------------------------------------ phase 18
+# Cell L: zamba2-1.2b (6 shared-attention groups of 32 kv heads x 64) at
+# long_500k: one request whose KV cache spans 524,288 positions (25.8 GB in
+# bfloat16), decoded once whole and once split by sequence over two ranks of
+# a gloo group on the one card (NCCL refuses two ranks on one device; gloo's
+# all-reduce takes CUDA tensors).  Two checks hold the sharded decode to the
+# unsharded one, in both runs (from the prefill, and over the filled cache):
+#
+# The layer.  Shared-attention group L_GROUP's call of every unsharded step
+# is kept: its q, the k / v row it inserted, its length and its output.  Each
+# rank replays those calls through decode_attention_seqsharded on a copy of
+# its shard of that group's cache taken before the first step (the prompt's
+# rows the unsharded run's, so both start from the same cache), and each
+# output must lie within one bfloat16 ulp of the unsharded output, element by
+# element: both score in float32 and differ only in the order of their sums,
+# then round to bfloat16 once.  The two ranks' outputs must be equal, and the
+# owner rank's copy must hold every inserted row at its position.
+#
+# The model.  The sharded steps are fed the unsharded run's tokens (teacher
+# forcing).  A random 38-layer model moves its logits far under a float32
+# reorder, so the bound is measured: the unsharded steps run again, fed the
+# same tokens, with every attention call's sums taken over L_REORDER_PARTS
+# equal runs of the cache's positions and combined by a max / sum written
+# here in plain PyTorch (one run per count of parts), and the reorder bound
+# of a step is the largest distance (max abs) of those runs' logits from the
+# unsharded logits at that step or before it.  A sharded step's logits must
+# lie within L_REORDER_RATIO times that bound of the unsharded step's, and
+# its token must equal the unsharded one unless the unsharded top-2 gap is
+# within the bound itself, and then be within the bound of the largest
+# logit.
+L_GROUP = 0
+L_REORDER_PARTS = (2, 4, 8)
+L_REORDER_RATIO = 2.0
+L_TIMEOUT_S = 600
 
+
+@dataclasses.dataclass(frozen=True)
+class LCell:
+    arch: str = "zamba2_1p2b"
+    reduced: bool = False  # the config's reduced() (a CPU rehearsal) in bfloat16
+    seed: int = 0
+    prompt: int = 8192  # tokens of the prefill
+    max_len: int = 524_288  # positions of the cache (SHAPES["long_500k"])
+    steps: int = 16
+    fill_len: int = 524_280  # the second check's length: its inserts land in rank 1's last slots
+    fill_steps: int = 8
+    ranks: int = 2
+    chunk: int = 8192  # positions of one seeded draw of the second check's keys and values
+
+    def model(self, dev):
+        """``(cfg, init_params model, the prompt (1, prompt) int32)``."""
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+
+        cfg = get_config(self.arch)
+        if self.reduced:
+            cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16", param_dtype="bfloat16")
+        model = init_params(cfg, self.seed, device=dev)
+        g = torch.Generator(device=dev).manual_seed(self.seed)
+        tokens = torch.randint(0, cfg.vocab_size, (1, self.prompt), generator=g, device=dev,
+                               dtype=torch.int32)
+        return cfg, model, tokens
+
+    def fill(self, cache, lo: int, dev):
+        """Seeded N(0, 1) keys and values at global positions ``[prompt,
+        fill_len)`` of an attention cache holding positions ``[lo, lo +
+        S)``, chunk by chunk, so that a shard draws the same numbers as the
+        whole cache at the positions it holds; then ``len = fill_len``."""
+        import torch
+
+        groups, b, s, kv, hd = cache["g_k"].shape
+        for c in range(self.prompt // self.chunk, self.max_len // self.chunk):
+            a = max(c * self.chunk, self.prompt, lo)
+            z = min((c + 1) * self.chunk, self.fill_len, lo + s)
+            if a >= z:
+                continue
+            for g in range(groups):
+                for j, name in enumerate(("g_k", "g_v")):
+                    gen = torch.Generator(device=dev).manual_seed((g * 2 + j) * 100_000 + c)
+                    x = torch.randn((b, self.chunk, kv, hd), generator=gen, device=dev)
+                    cache[name][g, :, a - lo:z - lo] = x[:, a - c * self.chunk:
+                                                         z - c * self.chunk].to(cache[name].dtype)
+        cache["len"].fill_(self.fill_len)
+
+
+CELL_L = LCell()
+
+
+class DecodeCalls:
+    """While entered, every ``decode_step`` keeps the last position's
+    logits (``models.model._logits``, wrapped) and the call of
+    shared-attention group ``group`` of ``groups`` (``decode_attention``,
+    wrapped: its q, the k / v row at position ``len - 1``, which the step
+    has just inserted, ``len - 1``, and its output), all on the CPU.
+    ``attend`` replaces ``decode_attention`` (a reordered combine)."""
+
+    def __init__(self, groups: int, group: int = L_GROUP, attend=None):
+        self.groups, self.group, self.attend = groups, group, attend
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import model as mm
+
+        self.mm, self.orig = mm, (mm._logits, mm.decode_attention)
+        self.logits, self.calls, n = [], [], [0]
+        attend = self.attend or self.orig[1]
+
+        def logits(*a):
+            out = self.orig[0](*a)
+            self.logits.append(out[0, -1].float().cpu())
+            return out
+
+        def decode_attention(q, k_cache, v_cache, cache_len, sliding_window=0):
+            out = attend(q, k_cache, v_cache, cache_len, sliding_window=sliding_window)
+            if n[0] % self.groups == self.group:
+                pos = (cache_len - 1).long()
+                rows = torch.arange(q.shape[0], device=q.device)
+                self.calls.append(dict(q=q.cpu(), k_new=k_cache[rows, pos][:, None].cpu(),
+                                       v_new=v_cache[rows, pos][:, None].cpu(),
+                                       len=(cache_len - 1).cpu(), out=out.cpu()))
+            n[0] += 1
+            return out
+
+        mm._logits, mm.decode_attention = logits, decode_attention
+        return self
+
+    def __exit__(self, *exc):
+        self.mm._logits, self.mm.decode_attention = self.orig
+
+
+def split_attention(parts: int):
+    """``decode_attention`` (no window) with its sums taken over ``parts``
+    equal runs of the cache's positions: float32 scores, the largest over
+    all runs, each run's exponentials, then the runs' sums added in order.
+    Plain PyTorch, apart from the port (the reorder bound's steps)."""
+    import torch
+
+    def attend(q, k_cache, v_cache, cache_len, sliding_window=0):
+        check(not sliding_window, "cell L: the reorder run takes no window")
+        b, s, kv, hd = k_cache.shape
+        h, n = q.shape[2], s // parts
+        scale = torch.tensor(hd ** -0.5, dtype=q.dtype, device=q.device)
+        qf = (q[:, 0] * scale).float().reshape(b, kv, h // kv, hd)  # scaled in q's dtype
+        scores = []
+        for j in range(parts):
+            sc = torch.einsum("bkgd,bskd->bkgs", qf, k_cache[:, j * n:(j + 1) * n].float())
+            pos = j * n + torch.arange(n, device=q.device)
+            scores.append(torch.where((pos[None, :] < cache_len[:, None])[:, None, None, :],
+                                      sc, -1e30))
+        top = torch.stack([sc.amax(dim=-1) for sc in scores]).amax(dim=0)
+        den, num = 0.0, 0.0
+        for j, sc in enumerate(scores):
+            p = torch.exp(sc - top[..., None])
+            den = den + p.sum(dim=-1)
+            num = num + torch.einsum("bkgs,bskd->bkgd", p, v_cache[:, j * n:(j + 1) * n].float())
+        return (num / den[..., None]).reshape(b, 1, h, hd).to(q.dtype)
+
+    return attend
+
+
+def l_decode(model, cache, feed, dev, step, groups: int, greedy: bool, attend=None):
+    """``feed.shape[1]`` serve steps from ``cache``: fed ``feed[0]`` and
+    then their own tokens (``greedy``) or ``feed[i]`` at step i (teacher
+    forcing), under ``DecodeCalls(groups, attend=attend)``; returns ``dict(feed
+    (1, n), tokens (n,), logits (n, V) float32, calls, ms)`` on the CPU, ms
+    on the host clock, synchronized."""
+    import torch
+
+    tok, inputs, toks, ms = feed[:, :1], [], [], []
+    with DecodeCalls(groups, attend=attend) as kept:
+        for i in range(feed.shape[1]):
+            if not greedy:
+                tok = feed[:, i:i + 1]
+            inputs.append(tok)
+            sync(dev)
+            t0 = time.perf_counter()
+            tok, cache = step(model, tok, cache)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(int(tok[0, 0]))
+    return dict(feed=torch.cat(inputs, dim=1).cpu(), tokens=torch.tensor(toks),
+                logits=torch.stack(kept.logits), calls=kept.calls, ms=ms)
+
+
+def l_reference(cell, cfg, model, tokens, dev, run_path):
+    """The unsharded run: the prefill (through ``run_path``: K5 x 6, K6 x
+    38), the whole cache, ``steps`` greedy serve steps, then the same steps
+    fed their tokens once for each of ``L_REORDER_PARTS`` (the reorder
+    bound's runs); then the same over the cache filled to ``fill_len``, for
+    ``fill_steps``.  Also returns group ``L_GROUP``'s keys and values of the
+    prompt (for the ranks' replay copies)."""
+    import torch
+
+    from repro_torch.launch.steps import (
+        decode_cache_from_prefill,
+        make_prefill_step,
+        make_serve_step,
+    )
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    prefill = make_prefill_step(cfg)
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    host, (last, pcache) = run_path(
+        "L prefill", ("flash_attention", "ssd_scan"),
+        lambda: host_ms(lambda: prefill(model, {"tokens": tokens}), dev),
+        exact={"flash_attention": groups, "ssd_scan": cfg.num_layers})
+    check(bool(torch.isfinite(last).all()), "cell L: non-finite prefill logits")
+    first = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    step = make_serve_step(cfg)
+    runs, prompt_kv = [], None
+    for fill, n in ((False, cell.steps), (True, cell.fill_steps)):
+        cache = decode_cache_from_prefill(cfg, pcache, cell.prompt, cell.max_len)
+        if fill:
+            cell.fill(cache, 0, dev)
+        else:
+            prompt_kv = tuple(cache[k][L_GROUP, :, :cell.prompt].cpu() for k in ("g_k", "g_v"))
+        start = {k: v.clone() for k, v in cache.items() if k not in ("g_k", "g_v")}
+        nbytes = sum(cache[k].numel() * cache[k].element_size() for k in ("g_k", "g_v"))
+        run = l_decode(model, cache, first.expand(1, n), dev, step, groups, True)
+        run["reorder"] = []
+        for parts in L_REORDER_PARTS:
+            for k, v in start.items():  # the rows past len are rewritten before they are read
+                cache[k].copy_(v)
+            again = l_decode(model, cache, run["feed"].to(dev), dev, step, groups, False,
+                             attend=split_attention(parts))
+            run["reorder"].append(again["logits"])
+        runs.append(dict(run, cache_bytes=nbytes))
+        del cache
+        if cuda:
+            torch.cuda.empty_cache()
+    return dict(prefill_ms=host, runs=runs, prompt_kv=prompt_kv,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0)
+
+
+def l_replay(cell, calls, kv, lo: int, mesh):
+    """Group ``L_GROUP``'s unsharded calls replayed through
+    ``decode_attention_seqsharded`` on ``kv`` (this rank's copies of that
+    group's shards, positions ``[lo, lo + S/n)``); returns the outputs and
+    whether every inserted row this rank owns sits at its position."""
+    import torch
+
+    from repro_torch.models.attention import decode_attention_seqsharded
+
+    k, v = kv
+    dev, s = k.device, k.shape[1]
+    outs, held = [], True
+    for c in calls:
+        out, k, v = decode_attention_seqsharded(c["q"].to(dev), k, v, c["len"].to(dev), mesh,
+                                                k_new=c["k_new"].to(dev),
+                                                v_new=c["v_new"].to(dev))
+        outs.append(out.cpu())
+        p = int(c["len"][0]) - lo
+        if 0 <= p < s:
+            held &= bool(torch.equal(k[:, p].cpu(), c["k_new"][:, 0])
+                         and torch.equal(v[:, p].cpu(), c["v_new"][:, 0]))
+    return outs, held
+
+
+def l_rank(rank, port, cell, ref_path, dev_type, out_path):
+    """One rank of the sharded run (a spawned process; on the card every
+    rank takes ``cuda:0``): its own prefill, only its shard of the cache
+    (``decode_cache_from_prefill(seq_shard=)``), the serve steps of
+    ``make_serve_step(cfg, mesh, seq_sharded=True)`` fed the unsharded
+    tokens; then the replay of group ``L_GROUP``'s unsharded calls
+    (:func:`l_replay`) on a copy of its shard of that group taken before
+    the steps."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import flash_attn as fa_mod
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
+    from repro_torch.launch.steps import (
+        decode_cache_from_prefill,
+        make_prefill_step,
+        make_serve_step,
+    )
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        build.build([fa_mod.SOURCE, ssd_mod.SOURCE])
+    ref = torch.load(ref_path, weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=cell.ranks)
+    try:
+        mesh = init_device_mesh(dev.type, (cell.ranks, 1), mesh_dim_names=("data", "model"))
+        cfg, model, tokens = cell.model(dev)
+        groups = cfg.num_layers // cfg.hybrid_attn_every
+        fa_mod.flash_attention.launches = ssd_mod.ssd_scan.launches = 0
+        _, pcache = make_prefill_step(cfg)(model, {"tokens": tokens})
+        sync(dev)
+        out = {"k5": fa_mod.flash_attention.launches, "k6": ssd_mod.ssd_scan.launches,
+               "backend": dist.get_backend(), "runs": []}
+        step = make_serve_step(cfg, mesh=mesh, seq_sharded=True)
+        lo = rank * (cell.max_len // cell.ranks)
+        for fill, run in zip((False, True), ref["runs"]):
+            cache = decode_cache_from_prefill(cfg, pcache, cell.prompt, cell.max_len,
+                                              seq_shard=(rank, cell.ranks))
+            if fill:
+                cell.fill(cache, lo, dev)
+            shard = tuple(cache["g_k"].shape)
+            kv = [cache[k][L_GROUP].clone() for k in ("g_k", "g_v")]
+            mine = slice(lo, min(lo + shard[2], cell.prompt))
+            prompt_diff = 0.0  # this rank's prefill rows against the unsharded run's
+            for t, want in zip(kv, ref["prompt_kv"]):
+                if mine.start < mine.stop:
+                    got = t[:, :mine.stop - lo]
+                    prompt_diff = max(prompt_diff, float((got.float().cpu()
+                                                          - want[:, mine].float()).abs().max()))
+                    got.copy_(want[:, mine].to(dev))
+            res = l_decode(model, cache, run["feed"].to(dev), dev, step, groups, False)
+            del cache
+            res["layer"], res["held"] = l_replay(cell, run["calls"], kv, lo, mesh)
+            del kv
+            out["runs"].append(dict(res, shard=shard, prompt_diff=prompt_diff))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def l_rank_entry(rank, port, cell, ref_path, dev_type, paths):
+    l_rank(rank, port, cell, ref_path, dev_type, paths[rank])
+
+
+def l_sharded(cell, ref, dev_type):
+    """Spawn the ranks and return their results; a rank that fails or a run
+    past L_TIMEOUT_S fails the phase (the ranks are killed)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase18_") as tmp:
+        ref_path = str(Path(tmp) / "reference.pt")
+        torch.save(dict(prompt_kv=ref["prompt_kv"],
+                        runs=[dict(feed=r["feed"], calls=r["calls"]) for r in ref["runs"]]),
+                   ref_path)
+        paths = [str(Path(tmp) / f"rank{r}.pt") for r in range(cell.ranks)]
+        ctx = mp.start_processes(l_rank_entry, args=(port, cell, ref_path, dev_type, paths),
+                                 nprocs=cell.ranks, join=False, start_method="spawn")
+        deadline = time.perf_counter() + L_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() < deadline,
+                      f"cell L: the sharded ranks ran past {L_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [torch.load(p, weights_only=False) for p in paths]
+
+
+def bf16_ulp(x):
+    """The larger spacing of each element of the bfloat16 ``x`` to its
+    neighbours, in float32."""
+    import torch
+
+    inf = torch.full_like(x, float("inf"))
+    return torch.maximum(torch.nextafter(x, inf) - x, x - torch.nextafter(x, -inf)).float()
+
+
+def l_layer_check(what, run, ranks, j):
+    """Each rank's replayed outputs within one bfloat16 ulp of the
+    unsharded calls', equal on every rank, the inserts held; returns the
+    largest error in ulps.  An element below 1/256 of the output's largest
+    takes the ulp of that share: the float32 sums' rounding follows the
+    sizes of their terms, not of a total that cancels to near zero."""
+    import torch
+
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        got = res["runs"][j]
+        check(got["held"], f"cell L {what}: rank {r} does not hold every row it inserted")
+        for i, (c, out) in enumerate(zip(run["calls"], got["layer"])):
+            want = c["out"]
+            ulp = torch.maximum(bf16_ulp(want), bf16_ulp(want.abs().amax() / 256))
+            err = float(((out.float() - want.float()).abs() / ulp).max())
+            check(err == err, f"cell L {what} step {i}: rank {r}'s layer output is not finite")
+            check(err <= 1.0, f"cell L {what} step {i}: rank {r}'s group-{L_GROUP} output "
+                  f"{err:.3g} bfloat16 ulps from the unsharded one")
+            check(torch.equal(out, ranks[0]["runs"][j]["layer"][i]),
+                  f"cell L {what} step {i}: ranks 0 and {r} disagree on the layer's output")
+            worst = max(worst, err)
+    return worst
+
+
+def l_compare(what, ref, got):
+    """The margin rule over one run's steps against the reorder bound;
+    returns ``(the largest logit error as a share of the tolerance, tokens
+    equal, the near ties taken, the steps whose logits equal each reorder
+    run's bit for bit)``."""
+    import torch
+
+    worst, ties = 0.0, []
+    dist = [(r - ref["logits"]).abs().amax(dim=-1) for r in ref["reorder"]]
+    bound = torch.stack(dist).amax(dim=0).cummax(dim=0).values
+    same = [sum(torch.equal(a, b) for a, b in zip(got["logits"], r)) for r in ref["reorder"]]
+    for i in range(ref["logits"].shape[0]):
+        want, have = ref["logits"][i], got["logits"][i]
+        b = float(bound[i])
+        tol = L_REORDER_RATIO * b
+        err = float((have - want).abs().max())
+        top = torch.topk(want, 2).values
+        gap = float(top[0] - top[1])
+        tok, ref_tok = int(got["tokens"][i]), int(ref["tokens"][i])
+        log(f"    {what} step {i}: logits {err:.4g} from the unsharded step's, reorder bound "
+            f"{b:.4g} (" + ", ".join(f"{p} parts {float(d[i]):.4g}" for p, d in
+                                     zip(L_REORDER_PARTS, dist))
+            + f"), top-2 gap {gap:.4g}, token {tok} vs {ref_tok}")
+        worst = max(worst, err / tol if tol else (0.0 if err == 0 else float("inf")))
+        check(err <= tol, f"cell L {what} step {i}: logits differ by {err:.4g} > {tol:.4g}")
+        if tok != ref_tok:
+            check(gap <= b and float(top[0] - want[tok]) <= b,
+                  f"cell L {what} step {i}: token {tok} != {ref_tok}, the top-2 gap {gap:.4g} "
+                  f"and its own gap {float(top[0] - want[tok]):.4g} against the reorder bound "
+                  f"{b:.4g}")
+            ties.append(i)
+    return worst, int((got["tokens"] == ref["tokens"]).sum()), ties, same
+
+
+def phase18(dev, run_path, cell=CELL_L):
+    """Cell L: the unsharded reference with its reorder runs, then the
+    sequence-sharded decode on ``cell.ranks`` spawned gloo ranks, held to
+    it layer by layer and by the margin rule."""
+    import statistics
+
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, model, tokens = cell.model(dev)
+    ref = l_reference(cell, cfg, model, tokens, dev, run_path)
+    del model, tokens
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    ranks = l_sharded(cell, ref, dev.type)
+    t_all = time.perf_counter() - t0
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    for r, res in enumerate(ranks):  # the CPU runs the plain versions, which count nothing
+        check(dev.type != "cuda" or (res["k5"] == groups and res["k6"] == cfg.num_layers),
+              f"cell L rank {r}: its prefill launched K5 {res['k5']} and K6 {res['k6']} times")
+    names = (f"{cell.steps} steps from the prefill (len {cell.prompt:,})",
+             f"{cell.fill_steps} steps from len {cell.fill_len:,} over the filled cache")
+    for j, name in enumerate(names):
+        run = ref["runs"][j]
+        ulps = l_layer_check(name, run, ranks, j)
+        held = [l_compare(f"{name}, rank {r}", run, res["runs"][j])
+                for r, res in enumerate(ranks)]
+        worst, same = max(h[0] for h in held), min(h[1] for h in held)
+        ties = sorted({i for h in held for i in h[2]})
+        equal = [min(h[3][k] for h in held) for k in range(len(L_REORDER_PARTS))]
+        ref_ms = statistics.median(run["ms"])
+        sh_ms = statistics.median(ranks[0]["runs"][j]["ms"])
+        bound_ms = run["cache_bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"  L {name}: group {L_GROUP}'s layer within {ulps:.3g} bfloat16 ulps of the "
+            f"unsharded one at every step, equal on the ranks, inserts held; tokens {same} of "
+            f"{len(run['tokens'])} == the unsharded run's ({run['tokens'][:8].tolist()}...), "
+            f"near ties within the reorder bound at steps {ties}; logits within {worst:.3f} of "
+            f"the tolerance ({L_REORDER_RATIO:g}x the reorder bound), bit-equal to the reorder "
+            f"runs' at " + ", ".join(f"{n} ({p} parts)" for n, p in zip(equal, L_REORDER_PARTS))
+            + f" of {len(run['tokens'])} steps; the ranks' prefill rows "
+            f"of group {L_GROUP} "
+            + ", ".join(f"{res['runs'][j]['prompt_diff']:.3g}" for res in ranks)
+            + f" from the unsharded run's; median step {ref_ms:.1f} ms unsharded, "
+            f"{sh_ms:.1f} ms sharded (rank 0; host clock, synchronized); bound {bound_ms:.2f} "
+            f"ms (the {run['cache_bytes'] / 1e9:.2f} GB cache read once at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    log(f"  L: {gpu_line()}; backend {ranks[0]['backend']}, {cell.ranks} ranks on one device, "
+        f"each holding g_k {ranks[0]['runs'][0]['shard']}; each rank's prefill K5 x "
+        f"{ranks[0]['k5']}, K6 x {ranks[0]['k6']}; prefill 1 x {cell.prompt:,} in "
+        f"{ref['prefill_ms']:.1f} ms (host, first call); peak allocation {ref['peak_gb']:.2f} GB "
+        f"unsharded, " + ", ".join(f"rank {r} {res['peak_gb']:.2f} GB" for r, res in
+                                   enumerate(ranks))
+        + f"; reference {t_ref:.1f} s, phase {t_all:.1f} s")
+
+
+# ------------------------------------------------------------ main
 
 def k5_spills(report, kernel) -> int:
     """Spill bytes ``ptxas`` reported for ``kernel<64>`` (its report
@@ -3543,6 +4045,12 @@ def main() -> int:
           "shapes")
     k5 = next(k for k in kernels if k["name"] == "flash_attention")
     k5["model_shapes"] = phase17(json.loads(GOLDEN_FAMILIES.read_text()), dev, run_path, errs)
+
+    phase(f"phase 18: cell L, zamba2-1.2b at long_500k: prefill 1 x {CELL_L.prompt:,}, the "
+          f"{CELL_L.max_len:,}-position cache decoded whole and split by sequence over "
+          f"{CELL_L.ranks} gloo ranks on the card ({CELL_L.steps} steps; {CELL_L.fill_steps} "
+          f"more over a filled cache)")
+    phase18(dev, run_path)
     k5["max_abs_err"] = errs["flash_attention"]
     for k in kernels:
         k["launches"] = totals[k["name"]]

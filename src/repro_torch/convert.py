@@ -24,6 +24,7 @@ from repro_torch.graphs.evolve import EvolvingGraphPair
 from repro_torch.memsim.engine import CacheState
 from repro_torch.memsim.hierarchy import DemandState
 from repro_torch.models.model import LM
+from repro_torch.models.sharding import to_layout, whole
 
 
 def cache_state(tags: np.ndarray, age: np.ndarray, device: DeviceLike = None) -> CacheState:
@@ -119,12 +120,17 @@ def load_lm_tree(named: Mapping[str, torch.Tensor], tree: Dict[str, Any]) -> Non
     into the tensors ``named`` like ``LM.named_parameters()`` (parameters,
     or AdamW's ``m`` / ``v``), in place, each cast to its tensor's dtype;
     numpy leaves go through float32."""
+    from torch.distributed.tensor import DTensor
+
     for name, p in named.items():
         leaf = _leaf(tree, name)
         if tuple(leaf.shape) != tuple(p.shape):
             raise ValueError(f"{name}: tree leaf {tuple(leaf.shape)} != tensor {tuple(p.shape)}")
         if not isinstance(leaf, torch.Tensor):
             leaf = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        if isinstance(p, DTensor):  # the whole leaf on every rank: keep this rank's shard
+            leaf = to_layout(leaf.to(p.dtype).to(p.to_local().device), p.device_mesh,
+                             p.placements)
         p.copy_(leaf)
 
 
@@ -143,7 +149,8 @@ def lm_tree_from_params(named: Union[LM, Mapping[str, torch.Tensor]]) -> Dict[st
     gradients or AdamW ``m`` / ``v``): nested dicts, the layers' tensors
     (of ``blocks`` and ``encoder``) stacked on axis 0.  The leaves are
     detached tensors in their own dtype and on their own device (numpy has
-    no bfloat16): ``.numpy()`` of a float32 CPU leaf is the JAX package's
+    no bfloat16), a DTensor gathered whole (a collective: every rank
+    calls it): ``.numpy()`` of a float32 CPU leaf is the JAX package's
     leaf, and ``load_lm_tree`` / ``lm_params_from_numpy`` invert it bit
     for bit."""
     if isinstance(named, LM):
@@ -151,6 +158,7 @@ def lm_tree_from_params(named: Union[LM, Mapping[str, torch.Tensor]]) -> Dict[st
     layers: Dict[Tuple[str, ...], list] = {}
     tree: Dict[str, Any] = {}
     for name, t in named.items():
+        t = whole(t)
         parts = name.split(".")
         if _layer(parts):
             key = (parts[0],) + tuple(parts[2:])

@@ -1,3 +1,4 @@
 """Launchers of the port: the train, prefill and serve steps, the training
-and serving loops (the port of ``repro/launch``; the mesh tooling and the
-dry run are still to be ported)."""
+and serving loops, the device mesh and sharding plan, and the host-only
+dry run and layer probe with their roofline (the port of
+``repro/launch``)."""

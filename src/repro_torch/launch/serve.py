@@ -10,6 +10,11 @@ same order: one first token per sequence, then one per prompt position.
 The parameters come from ``init_params`` with a ``torch.Generator`` seeded
 with ``seed``, on the launcher's device.  :func:`serve_loop` is the loop
 itself, for callers that bring their own parameters and tokens.
+
+Under the ``COORDINATOR_ADDRESS`` bootstrap (``launch/train.py``) every
+process is a rank of one grid with ``--model-parallel`` on its ``model``
+axis, and the parameters are laid out on it by the sharding plan; every
+rank feeds the same tokens and gets the same output.
 """
 from __future__ import annotations
 
@@ -22,9 +27,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
 from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.train import maybe_distributed_init, rank_devices
 from repro_torch.models import decode_step, init_cache, init_params
+from repro_torch.models.sharding import distribute_params, step_context
+from repro_torch.runtime import ElasticMesh
 
 
 def prompt_tokens(rng: np.random.Generator, vocab: int, batch: int, prompt_len: int) -> np.ndarray:
@@ -65,7 +73,8 @@ def serve_loop(cfg, params, tokens: np.ndarray, gen: int, keep_prompt_cache: boo
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(prompt_len):
-        logits, cache = decode_step(cfg, params, toks[:, i:i + 1], cache)
+        with step_context(params):
+            logits, cache = decode_step(cfg, params, toks[:, i:i + 1], cache)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     kept = {k: v.clone() for k, v in cache.items()} if keep_prompt_cache else None
@@ -92,14 +101,16 @@ def main(argv=None, device: DeviceLike = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1 needs the port's mesh (ROADMAP.md)")
-
-    dev = resolve_device(args.device if device is None else device)
+    device = args.device if device is None else device
+    maybe_distributed_init(device)
+    dev, devices = rank_devices(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = ElasticMesh(model_parallel=args.model_parallel).build(devices)
     params = init_params(cfg, args.seed, device=dev)
+    if mesh.device_mesh is not None:
+        distribute_params(params, mesh.device_mesh)
     rng = np.random.default_rng(args.seed)
     tokens = prompt_tokens(rng, cfg.vocab_size, args.batch, args.prompt_len)
     res = serve_loop(cfg, params, tokens, args.gen)

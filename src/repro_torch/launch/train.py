@@ -14,8 +14,15 @@ step's host time (the card synchronized before the clock is read);
 ``--grad-compress`` allocates the int8 error-feedback buffer and, as in the
 JAX launcher, nothing more.  The train state on disk is ``(params,
 {"m", "step", "v"})`` in the JAX package's pytree layout
-(``convert.lm_tree_from_params``).  One device: ``--model-parallel > 1``
-and the multi-host bootstrap (``COORDINATOR_ADDRESS``) raise.
+(``convert.lm_tree_from_params``).
+
+Several processes: ``COORDINATOR_ADDRESS`` (``host:port``),
+``NUM_PROCESSES`` and ``PROCESS_ID`` (the JAX launcher's variables) bring
+up a ``torch.distributed`` group (NCCL on the card, gloo on the CPU), one
+rank a process.  The grid then spans the ranks, with ``--model-parallel``
+on its ``model`` axis; the parameters, optimizer state and batches are
+laid out on it by the sharding plan (DTensors), and the gradient
+all-reduce is DTensor's.  Rank 0 writes the checkpoints, gathered whole.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import time
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
@@ -34,16 +42,40 @@ from repro_torch.data import SyntheticLMData
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import LM, init_params
+from repro_torch.models.sharding import batch_shardings, distribute, distribute_params, whole
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.grad_compress import init_error_buf
 from repro_torch.runtime import ElasticMesh, StragglerMonitor
 
 
-def maybe_distributed_init():
-    if os.environ.get("COORDINATOR_ADDRESS"):
-        raise NotImplementedError(
-            "the multi-host bootstrap (COORDINATOR_ADDRESS) needs the port's device mesh; "
-            "still to be ported (ROADMAP.md, queue 1 item 10)")
+def maybe_distributed_init(device: DeviceLike = None) -> bool:
+    """Join the process group that ``COORDINATOR_ADDRESS`` (``host:port``),
+    ``NUM_PROCESSES`` and ``PROCESS_ID`` describe (NCCL for the card, gloo
+    for the CPU), if they are set and no group is up; returns whether a
+    group is up."""
+    addr = os.environ.get("COORDINATOR_ADDRESS")
+    if addr and not dist.is_initialized():
+        backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"tcp://{addr}",
+                                world_size=int(os.environ.get("NUM_PROCESSES", "1")),
+                                rank=int(os.environ.get("PROCESS_ID", "0")))
+    return dist.is_initialized()
+
+
+def rank_devices(device: DeviceLike = None) -> list:
+    """``(this rank's device, one device a rank)``: the process's device
+    alone outside a process group; within one, ``cuda:(rank % cards)`` (made
+    current) or the CPU for every rank."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        return dev, [dev]
+    world = dist.get_world_size()
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        dev = torch.device("cuda", dist.get_rank() % n)
+        torch.cuda.set_device(dev)
+        return dev, [torch.device("cuda", r % n) for r in range(world)]
+    return dev, [dev] * world
 
 
 def train_state(params: LM, opt_state: dict) -> tuple:
@@ -96,25 +128,27 @@ def parse_args(argv=None) -> argparse.Namespace:
 def train(args: argparse.Namespace, device: DeviceLike = None) -> TrainRun:
     """The launcher's run: what :func:`main` does, returning the state it
     ends with and its timings."""
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1 needs the port's mesh (ROADMAP.md)")
-    maybe_distributed_init()
-    dev = resolve_device(args.device if device is None else device)
+    device = args.device if device is None else device
+    maybe_distributed_init(device)
+    dev, devices = rank_devices(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, remat_policy="none" if args.reduced else cfg.remat_policy)
 
     elastic = ElasticMesh(model_parallel=args.model_parallel)
-    mesh = elastic.build([dev])
+    mesh = elastic.build(devices)
+    dmesh = mesh.device_mesh
     print(f"mesh: {mesh.shape} devices={mesh.devices.size}")
 
     ocfg = AdamWConfig(lr=args.lr, state_dtype=cfg.opt_state_dtype)
     params = init_params(cfg, args.seed, device=dev).requires_grad_(True)
+    if dmesh is not None:
+        distribute_params(params, dmesh)
     named = dict(params.named_parameters())
     opt_state = adamw_init(named, ocfg)
-    # allocated and left unused, as in the JAX launcher: the cross-pod EF-int8
-    # all-reduce needs a mesh (ROADMAP.md, queue 1 item 10)
+    # allocated and left unused, as in the JAX launcher (whose cross-pod EF-int8
+    # all-reduce is exercised only in its tests)
     err_buf = init_error_buf(named) if args.grad_compress else None  # noqa: F841
     step_fn = make_train_step(cfg, ocfg)
 
@@ -142,6 +176,8 @@ def train(args: argparse.Namespace, device: DeviceLike = None) -> TrainRun:
     t_start = time.perf_counter()
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+        if dmesh is not None:  # every rank holds the same global batch
+            batch = distribute(batch, batch_shardings(cfg, dmesh, batch), dmesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -149,7 +185,7 @@ def train(args: argparse.Namespace, device: DeviceLike = None) -> TrainRun:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
-        loss = float(metrics["loss"])
+        loss = float(whole(metrics["loss"]))
         monitor.record(host=0, step_time=dt)
         run.losses.append(loss)
         run.step_s.append(dt)
@@ -157,10 +193,14 @@ def train(args: argparse.Namespace, device: DeviceLike = None) -> TrainRun:
             print(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
         if ckpt and (step + 1) % args.ckpt_every == 0:
             t0 = time.perf_counter()
-            path = ckpt.save(step + 1, train_state(params, opt_state))
+            state = train_state(params, opt_state)  # gathered on every rank
+            if dmesh is None or dist.get_rank() == 0:
+                path = ckpt.save(step + 1, state)
+                run.ckpt_paths.append(path)
+                print(f"[ckpt] {path}")
+            if dmesh is not None:
+                dist.barrier()
             run.ckpt_s.append(time.perf_counter() - t0)
-            run.ckpt_paths.append(path)
-            print(f"[ckpt] {path}")
     wall = time.perf_counter() - t_start
     if run.losses:
         print(

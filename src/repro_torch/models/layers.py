@@ -54,8 +54,8 @@ def mrope(
     assert sum(sections) == half, (sections, half)
     freqs = _rope_freqs(hd, theta, x.device)  # (half,)
     # Select which position stream drives each frequency slot.
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device))  # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)  # (half,)
     # positions3: (..., 3, S) -> (..., S, half)
     moved = positions3.movedim(-2, -1)  # (..., S, 3)
     pos = torch.gather(moved, -1, sec_id.expand(moved.shape[:-1] + (half,)))

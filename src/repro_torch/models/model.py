@@ -53,9 +53,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
-from repro_torch.models.attention import blocked_attention, decode_attention
+from repro_torch.models.attention import (
+    attend_on_mesh,
+    blocked_attention,
+    decode_attention,
+    decode_attention_seqsharded,
+)
 from repro_torch.models.layers import dense_init, mrope, rms_norm, rope, swiglu
 from repro_torch.models.moe import MoEParams, moe_ffn
+from repro_torch.models.sharding import act_hint, assign, reduce_partial, shard_hint, write_rows
 from repro_torch.models.ssm import SSMParams, ssd_chunked, ssm_block, ssm_decode_step
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -64,6 +70,13 @@ DENSE_LAYOUT = ("dense", "vlm", "moe")  # one (k, v) cache a layer
 
 def padded_vocab(v: int) -> int:
     return -(-v // 128) * 128
+
+
+def _device(device: DeviceLike) -> torch.device:
+    """``resolve_device``, but ``"meta"`` is taken as given (shapes alone)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -188,10 +201,7 @@ class LM(nn.Module):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
-        if device is not None and torch.device(device).type == "meta":
-            device = torch.device("meta")
-        else:
-            device = resolve_device(device)
+        device = _device(device)
         self.cfg = cfg
         dtype = cfg.parameter_dtype
         vp = padded_vocab(cfg.vocab_size)
@@ -306,9 +316,10 @@ def _qkv(p: Attention, cfg: ModelConfig, x, src=None):
     src = x if src is None else src
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
-    k = (src @ p.wk.to(x.dtype)).reshape(b, src.shape[1], cfg.num_kv_heads, hd)
-    v = (src @ p.wv.to(x.dtype)).reshape(b, src.shape[1], cfg.num_kv_heads, hd)
+    kv = cfg.num_kv_heads
+    q = act_hint(x @ p.wq.to(x.dtype), cfg.num_heads).reshape(b, s, cfg.num_heads, hd)
+    k = act_hint(src @ p.wk.to(x.dtype), kv).reshape(b, src.shape[1], kv, hd)
+    v = act_hint(src @ p.wv.to(x.dtype), kv).reshape(b, src.shape[1], kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.qn)
         k = rms_norm(k, p.kn)
@@ -331,19 +342,29 @@ def _attention_block(p: Attention, cfg: ModelConfig, x, positions, attend=blocke
     q, k, v = _qkv(p, cfg, x, kv_x)
     if kv_x is None and cfg.rope_theta and cfg.family != "encdec":
         q, k = _apply_rope(cfg, q, k, positions, positions3)
-    o = attend(q, k, v, causal=causal, sliding_window=cfg.sliding_window)
-    o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    o = attend_on_mesh(attend, q, k, v, causal=causal, sliding_window=cfg.sliding_window)
+    # pinned as q was: the gradient then reaches the merge of the heads in a
+    # layout its split back into heads can take
+    o = act_hint(o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), cfg.num_heads)
     return o @ p.wo.to(x.dtype), (k, v)
 
 
-def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache_len):
+def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache_len,
+                      mesh=None, seq_sharded: bool = False):
     """One-token attention against the cache; writes the token's k and v
-    into ``k_cache`` / ``v_cache`` (B, S, KV, hd) in place."""
+    into ``k_cache`` / ``v_cache`` (B, S, KV, hd) in place.  With
+    ``seq_sharded`` and a mesh, the cache is this rank's part of a cache
+    split over the mesh's ``data`` axis (``decode_attention_seqsharded``)."""
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     if cfg.rope_theta and cfg.family != "encdec":  # plain rope, also for vlm
         q = rope(q, cache_len[:, None], cfg.rope_theta)
         k = rope(k, cache_len[:, None], cfg.rope_theta)
+    if seq_sharded and mesh is not None:
+        # the owner shard writes the token (no window, no clamp: the reference's)
+        o, _, _ = decode_attention_seqsharded(q, k_cache, v_cache, cache_len, mesh,
+                                              k_new=k, v_new=v)
+        return o.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim) @ p.wo.to(x.dtype)
     # As in the JAX package, the ring branch is taken only where the cache
     # holds more than the window; init_cache sizes it to the window, so
     # past it the newest position is written to the last slot.
@@ -353,9 +374,7 @@ def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache
         write_pos = cache_len % cfg.sliding_window
     else:
         write_pos = torch.clamp(cache_len, max=s_max - 1)
-    bidx = torch.arange(b, device=x.device)
-    k_cache[bidx, write_pos.long()] = k[:, 0]
-    v_cache[bidx, write_pos.long()] = v[:, 0]
+    write_rows(write_pos, (k_cache, k[:, 0]), (v_cache, v[:, 0]))
     eff_len = torch.clamp(cache_len + 1, max=cfg.sliding_window) if ring else cache_len + 1
     # the ring buffer already bounds the window
     o = decode_attention(q, k_cache, v_cache, eff_len, sliding_window=0)
@@ -404,18 +423,20 @@ def _encdec_layer(layer: EncDecLayer, cfg, x, positions, enc_out, attend=blocked
     return x + _mlp(layer.mlp, rms_norm(x, layer.ln2)), (kv, xkv)
 
 
-def _dense_decode(layer: DenseLayer, cfg, x, k_cache, v_cache, cache_len):
+def _dense_decode(layer: DenseLayer, cfg, x, k_cache, v_cache, cache_len, mesh=None,
+                  seq_sharded=False):
     h = rms_norm(x, layer.ln1)
-    x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len)
+    x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len, mesh, seq_sharded)
     return x + _mlp(layer.mlp, rms_norm(x, layer.ln2))
 
 
-def _moe_decode(layer: MoELayer, cfg, x, k_cache, v_cache, cache_len):
+def _moe_decode(layer: MoELayer, cfg, x, k_cache, v_cache, cache_len, mesh=None,
+                seq_sharded=False):
     """The MoE routes the step's ``B`` tokens: capacity ``max(int(1.25 B k
     / E), 1)``, so a decode step can drop slots a prefill keeps."""
     b = x.shape[0]
     h = rms_norm(x, layer.ln1)
-    x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len)
+    x = x + _attention_decode(layer.attn, cfg, h, k_cache, v_cache, cache_len, mesh, seq_sharded)
     h = rms_norm(x, layer.ln2)
     y, _, _ = moe_ffn(h.reshape(b, -1), layer.moe.params(), cfg.moe_top_k)
     return x + y.reshape(b, 1, -1)
@@ -429,7 +450,7 @@ def _cross_decode(p: Attention, cfg, x, xk, xv, xlen):
     the output is zero, not NaN."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(b, 1, cfg.num_heads, hd)
+    q = act_hint(x @ p.wq.to(x.dtype), cfg.num_heads).reshape(b, 1, cfg.num_heads, hd)
     o = decode_attention(q, xk, xv, xlen)
     return o.reshape(b, 1, cfg.num_heads * hd) @ p.wo.to(x.dtype)
 
@@ -442,11 +463,13 @@ def _encdec_decode(layer: EncDecLayer, cfg, x, k_cache, v_cache, xk, xv, cache_l
 
 
 def _mamba_layer(layer: MambaLayer, cfg, x, scan=ssd_chunked):
+    x = act_hint(x)
     y, state = ssm_block(layer.ssm.params(), rms_norm(x, layer.ln1), cfg, scan=scan)
     return x + y, state
 
 
 def _mamba_decode(layer: MambaLayer, cfg, x, state):
+    x = act_hint(x)
     y, state = ssm_decode_step(layer.ssm.params(), rms_norm(x, layer.ln1), state, cfg)
     return x + y, state
 
@@ -457,9 +480,15 @@ def _groups(cfg: ModelConfig):
     return every, groups, cfg.num_layers - groups * every
 
 
+def _embed(params: LM, tokens, dt):
+    """The tokens' rows of the embedding (on a device mesh, reduced at once
+    where the vocabulary is split)."""
+    return reduce_partial(F.embedding(tokens.long(), params.embed.to(dt)))
+
+
 def _logits(params: LM, x):
     x = rms_norm(x, params.final_norm)
-    return x @ params.head.to(x.dtype).T
+    return shard_hint(x @ params.head.to(x.dtype).T, "batch", None, "model")
 
 
 # --------------------------------------------------------------------------
@@ -555,7 +584,8 @@ def _forward(cfg: ModelConfig, params: LM, tokens, return_cache: bool, layers: L
     if embeds is not None:
         x = embeds.to(dt)
     else:
-        x = F.embedding(tokens.long(), params.embed.to(dt))
+        x = _embed(params, tokens, dt)
+    x = shard_hint(x, "batch", None, None)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -565,6 +595,8 @@ def _forward(cfg: ModelConfig, params: LM, tokens, return_cache: bool, layers: L
             enc_out = _encoder_forward(cfg, params.encoder, encoder_frames, layers)
         kvs = []
         for layer in params.blocks:
+            if cfg.family != "encdec":
+                x = shard_hint(x, "batch", None, None)
             if cfg.family == "moe":
                 x, a, kv = layers.moe(layer, cfg, x, positions, positions3)
                 aux = aux + a
@@ -663,7 +695,7 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ll = reduce_partial(torch.gather(logits, -1, labels[..., None]))[..., 0]
     nll = (logz - ll).mean()
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}
@@ -676,8 +708,9 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None):
-    """Allocate the decode cache of one model (zeros) on ``device``."""
-    device = resolve_device(device)
+    """Allocate the decode cache of one model (zeros) on ``device``
+    (``"meta"``: the shapes alone)."""
+    device = _device(device)
     dt = dtype or cfg.activation_dtype
     hd = cfg.resolved_head_dim
     L = cfg.num_layers
@@ -720,17 +753,19 @@ def decode_step(
     seq_sharded: bool = False,
 ):
     """serve_step: one new token against the cache.  Returns ``(logits,
-    cache)``; the cache's tensors are updated in place."""
-    if mesh is not None or seq_sharded:
-        raise NotImplementedError(
-            "the sequence-sharded decode needs a device mesh; still to be ported (ROADMAP.md)")
+    cache)``; the cache's tensors are updated in place.  With
+    ``seq_sharded`` and a ``mesh`` the attention caches (``k`` / ``v``,
+    ``g_k`` / ``g_v``) are this rank's sequence shards (or DTensors split so
+    over ``data``; ``decode_attention_seqsharded``); ``len`` stays global.
+    As in the JAX package, the encoder-decoder's self-attention does not
+    take the mesh."""
     dt = cfg.activation_dtype
-    x = F.embedding(tokens.long(), params.embed.to(dt))
+    x = _embed(params, tokens, dt)
     cache_len = cache["len"]
     if cfg.family in DENSE_LAYOUT:
         step = _moe_decode if cfg.family == "moe" else _dense_decode
         for i, layer in enumerate(params.blocks):
-            x = step(layer, cfg, x, cache["k"][i], cache["v"][i], cache_len)
+            x = step(layer, cfg, x, cache["k"][i], cache["v"][i], cache_len, mesh, seq_sharded)
     elif cfg.family == "encdec":
         for i, layer in enumerate(params.blocks):
             x = _encdec_decode(layer, cfg, x, cache["k"][i], cache["v"][i], cache["xk"][i],
@@ -738,18 +773,18 @@ def decode_step(
     elif cfg.family == "ssm":
         for i, layer in enumerate(params.blocks):
             x, st = _mamba_decode(layer, cfg, x, cache["state"][i])
-            cache["state"][i].copy_(st)
+            assign(cache["state"][i], st)
     else:
         every, groups, rest = _groups(cfg)
         for g in range(groups):
             for i, layer in enumerate(params.blocks[g * every:(g + 1) * every]):
                 x, st = _mamba_decode(layer, cfg, x, cache["g_state"][g, i])
-                cache["g_state"][g, i].copy_(st)
+                assign(cache["g_state"][g, i], st)
             x = _dense_decode(params.shared_attn, cfg, x, cache["g_k"][g], cache["g_v"][g],
-                              cache_len)
+                              cache_len, mesh, seq_sharded)
         for i, layer in enumerate(params.blocks[groups * every:]):
             x, st = _mamba_decode(layer, cfg, x, cache["t_state"][i])
-            cache["t_state"][i].copy_(st)
+            assign(cache["t_state"][i], st)
     return _logits(params, x), dict(cache, len=cache_len + 1)
 
 

@@ -18,8 +18,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+from repro_torch.models.sharding import act_hint, local_on_mesh, splits_heads
 
 
 class SSMParams(NamedTuple):
@@ -70,15 +72,35 @@ def ssm_block(
     d_inner = cfg.ssm_expand * cfg.d_model
     h = d_inner // cfg.ssm_head_dim
     n = cfg.ssm_state
-    zxbcdt = x @ params.w_in.to(x.dtype)
+    # on a mesh, the projection whole over "model": it is split at uneven offsets
+    zxbcdt = act_hint(x @ params.w_in.to(x.dtype))
     xi, z, b, c, dt = _split_proj(zxbcdt, d_inner, n, h)
     dt = F.softplus(dt.float() + params.dt_bias)
     a = -torch.exp(params.a_log.float())
     xh = xi.reshape(*xi.shape[:-1], h, cfg.ssm_head_dim)
-    y, state = scan(xh, dt, a, b, c, chunk=cfg.ssm_chunk, init_state=init_state)
+    y, state = _scan(scan, xh, dt, a, b, c, cfg.ssm_chunk, init_state)
     y = y + xh.float() * params.d_skip[None, None, :, None]
     y = y.reshape(xi.shape)
     return _gated_out(params, y, z, x.dtype), state
+
+
+def _scan(scan, xh, dt, a, b, c, chunk, init_state):
+    """The SSD scan; on a device mesh, on each rank's rows and heads."""
+    if not isinstance(xh, DTensor):
+        return scan(xh, dt, a, b, c, chunk=chunk, init_state=init_state)
+    args = (xh, dt, a, b, c) + (() if init_state is None else (init_state,))
+    dims = [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1)][:len(args)]
+    return local_on_mesh(lambda *t: scan(*t[:5], chunk=chunk,
+                                         init_state=t[5] if len(t) > 5 else None),
+                         args, dims, [(0, 2), (0, 1)], splits_heads(xh.shape[2]))
+
+
+def _decode_core(xh, bv, cv, dt, a, d_skip, state):
+    """One recurrent step: ``(y (B, H, P), state')`` of ``x`` (B, H, P),
+    ``B`` / ``C`` (B, N), ``dt`` (B, H) against ``state`` (B, H, P, N)."""
+    decay = torch.exp(dt * a[None, :])  # (B,H)
+    state = state * decay[:, :, None, None] + torch.einsum("bhp,bn,bh->bhpn", xh, bv, dt)
+    return torch.einsum("bhpn,bn->bhp", state, cv) + xh * d_skip[None, :, None], state
 
 
 def ssm_decode_step(
@@ -91,16 +113,17 @@ def ssm_decode_step(
     d_inner = cfg.ssm_expand * cfg.d_model
     h = d_inner // cfg.ssm_head_dim
     n = cfg.ssm_state
-    zxbcdt = x @ params.w_in.to(x.dtype)
+    zxbcdt = act_hint(x @ params.w_in.to(x.dtype))  # whole over "model", as in ssm_block
     xi, z, b, c, dt = _split_proj(zxbcdt, d_inner, n, h)
     dt = F.softplus(dt.float() + params.dt_bias)[:, 0]  # (B,H)
     a = -torch.exp(params.a_log.float())
     xh = xi[:, 0].reshape(-1, h, cfg.ssm_head_dim).float()  # (B,H,P)
-    bv = b[:, 0].float()  # (B,N)
-    cv = c[:, 0].float()
-    decay = torch.exp(dt * a[None, :])  # (B,H)
-    state = state * decay[:, :, None, None] + torch.einsum("bhp,bn,bh->bhpn", xh, bv, dt)
-    y = torch.einsum("bhpn,bn->bhp", state, cv) + xh * params.d_skip[None, :, None]
+    args = (xh, b[:, 0].float(), c[:, 0].float(), dt, a, params.d_skip, state)
+    if isinstance(xh, DTensor):  # each rank's rows and heads
+        dims = [(0, 1), (0, None), (0, None), (0, 1), (None, 0), (None, 0), (0, 1)]
+        y, state = local_on_mesh(_decode_core, args, dims, [(0, 1), (0, 1)], splits_heads(h))
+    else:
+        y, state = _decode_core(*args)
     y = y.reshape(x.shape[0], 1, d_inner)
     return _gated_out(params, y, z, x.dtype), state
 

@@ -36,7 +36,8 @@ def adamw_init(params: Tensors, cfg: AdamWConfig) -> dict:
     dt = getattr(torch, cfg.state_dtype)
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in params.items()}
+        # zeros_like keeps a DTensor parameter's layout: the state follows its plan
+        return {k: torch.zeros_like(p, dtype=dt) for k, p in params.items()}
 
     device = next(iter(params.values())).device if params else None
     return {"m": zeros(), "v": zeros(),

@@ -40,5 +40,5 @@ def error_feedback_update(grads: Tensors, error_buf: Tensors) -> Tuple[Tensors, 
 
 
 def init_error_buf(params: Tensors) -> Tensors:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+    # zeros_like keeps a DTensor parameter's layout
+    return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}

@@ -6,10 +6,11 @@ The recovery loop is the JAX package's: a failure marks devices dead;
 device count (model axis preserved, data axis shrinks); the train state is
 restored from the latest checkpoint; the data pipeline re-slices by the new
 shard count.  ``plan_mesh`` is a copy of the JAX function.  The JAX package
-builds a ``jax.sharding.Mesh``; here :class:`Mesh` is the grid itself, a
-numpy object array of ``torch.device``s with its axis names.  A
-``torch.distributed`` device mesh over it is still to be ported
-(``ROADMAP.md``, queue 1 item 10).
+builds a ``jax.sharding.Mesh``; here :class:`Mesh` is the grid, a numpy
+object array of ``torch.device``s (one a rank) with its axis names, and,
+when ``torch.distributed`` is up with as many ranks as the grid holds, the
+``DeviceMesh`` over those ranks (``device_mesh``), on which the sharding
+plan lays tensors out (``models/sharding.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def plan_mesh(
@@ -42,10 +44,13 @@ def plan_mesh(
 @dataclasses.dataclass
 class Mesh:
     """A device grid: ``devices`` of shape ``(data, model)`` or ``(pod,
-    data, model)``, named by ``axis_names``."""
+    data, model)``, named by ``axis_names``; ``device_mesh`` the
+    ``torch.distributed`` mesh over the same ranks, or ``None`` outside a
+    process group of that size."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    device_mesh: Optional[object] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -82,6 +87,11 @@ class ElasticMesh:
             self.mesh = Mesh(arr, ("pod", "data", "model"))
         else:
             self.mesh = Mesh(arr.reshape(data, model), ("data", "model"))
+        if dist.is_initialized() and dist.get_world_size() == arr.size:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            self.mesh.device_mesh = init_device_mesh(
+                self.devices[0].type, self.mesh.devices.shape, mesh_dim_names=self.mesh.axis_names)
         return self.mesh
 
     def on_failure(self, dead: Sequence) -> Mesh:

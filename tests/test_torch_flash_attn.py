@@ -148,8 +148,35 @@ def test_decode_attention_matches_jax():
 
 
 def test_seqsharded_decode_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_attention_seqsharded()
+    """The sequence-sharded decode takes a device mesh: on a one-rank mesh
+    (a gloo group of one) its owner-shard insert and combined softmax give
+    ``decode_attention`` over the inserted cache (the two-rank cases are in
+    ``tests/test_torch_seqsharded.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rng = np.random.default_rng(5)
+    b, s, h, kv, hd = 2, 24, 4, 2, 16
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    kn, vn = (rng.standard_normal((b, 1, kv, hd)).astype(np.float32) for _ in range(2))
+    lens = np.array([5, 23], np.int32)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        kc, vc = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+        out, k2, v2 = decode_attention_seqsharded(
+            torch.from_numpy(q), kc, vc, torch.from_numpy(lens), mesh,
+            k_new=torch.from_numpy(kn), v_new=torch.from_numpy(vn))
+    finally:
+        dist.destroy_process_group()
+    for i, n in enumerate(lens):
+        k[i, n], v[i, n] = kn[i, 0], vn[i, 0]
+    assert k2 is kc and v2 is vc
+    np.testing.assert_array_equal(kc.numpy(), k)
+    np.testing.assert_array_equal(vc.numpy(), v)
+    want = decode_attention(*(torch.from_numpy(a) for a in (q, k, v, lens + 1)))
+    np.testing.assert_allclose(f32(out), f32(want), rtol=1e-4, atol=1e-5)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -213,13 +213,23 @@ def test_serve_loop_matches_the_jax_launcher(arch):
 
 
 def test_serve_main_runs_on_the_cpu_and_refuses_a_mesh():
+    """One process runs the launcher and refuses a grid it cannot host
+    (``--model-parallel 2`` needs two ranks: ``tests/test_torch_distributed.py``);
+    ``seq_sharded`` without a mesh is the unsharded step, as in the JAX
+    package's ``decode_step``."""
     gen = serve_main(["--arch", "zamba2_1p2b", "--reduced", "--batch", "2",
                       "--prompt-len", "5", "--gen", "3", "--device", "cpu"])
     assert gen.shape == (2, 3) and gen.dtype == np.int32
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cannot host"):
         serve_main(["--reduced", "--model-parallel", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        make_serve_step(get_config("zamba2_1p2b").reduced(), seq_sharded=True)
+    cfg = get_config("zamba2_1p2b").reduced()
+    params = init_params(cfg, 0, device="cpu")
+    tok = torch.tensor([[3], [7]], dtype=torch.int32)
+    outs = [make_serve_step(cfg, seq_sharded=sharded)(params, tok, init_cache(cfg, 2, 8,
+                                                                               device="cpu"))
+            for sharded in (False, True)]
+    np.testing.assert_array_equal(outs[0][0].numpy(), outs[1][0].numpy())
+    np.testing.assert_array_equal(outs[0][1]["g_k"].numpy(), outs[1][1]["g_k"].numpy())
 
 
 def test_lm_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -267,3 +277,31 @@ def test_float32_drift_tool_runs_on_the_cpu():
         assert (attention.flash_attention, ssm.ssd_scan) == (blocked_attention_plain,
                                                              ssd_chunked_plain)
     assert (attention.flash_attention, ssm.ssd_scan) == kernels
+
+
+def test_serve_loop_timing_tool_runs_on_the_cpu():
+    """``tools/serve_loop_ms.py`` on the reduced zamba2: one repetition's
+    tokens are the serve loop's on the same inputs, and one decode step
+    dispatches aten ops."""
+    import hashlib
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_tokens, serve_loop
+    from repro_torch.models import init_params
+
+    path = os.path.join(os.path.dirname(__file__), "..", "tools", "serve_loop_ms.py")
+    spec = importlib.util.spec_from_file_location("serve_loop_ms", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rep, ops = mod.main(["--reduced", "--device", "cpu", "--reps", "1", "--prompt", "6",
+                         "--gen", "3"])
+    cfg = get_config("zamba2_1p2b").reduced()
+    tokens = prompt_tokens(np.random.default_rng(0), cfg.vocab_size, 4, 7)
+    gen = serve_loop(cfg, init_params(cfg, 0, device="cpu"), tokens, 3).gen
+    assert rep["tokens_sha256"] == hashlib.sha256(gen.tobytes()).hexdigest()
+    assert rep["decode_step_ms"] > 0 and rep["serve_step_ms"] > 0
+    assert ops["decode_step_aten_ops"] > 0 and ops["decode_step_python_calls"] > 0

@@ -119,7 +119,9 @@ def test_port_never_imports_jax_or_repro():
     port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files[:-1]}
     assert {"memsim/streaming.py", "core/exec/sharded.py", "core/exec/scheduler.py",
             "optim/adamw.py", "checkpoint/manager.py", "runtime/elastic.py",
-            "launch/train.py", "models/moe.py"} <= port
+            "launch/train.py", "models/moe.py", "models/sharding.py", "launch/mesh.py",
+            "launch/specs.py", "launch/hlo_analysis.py", "launch/roofline.py",
+            "launch/dryrun.py", "launch/layer_probe.py"} <= port
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -127,6 +129,16 @@ def test_port_never_imports_jax_or_repro():
             if root in ("jax", "jaxlib", "repro"):
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The port's module tree holds every module of the JAX package's, at
+    the same relative path."""
+    jax_tree = {p.relative_to(ROOT / "src" / "repro").as_posix()
+                for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert not sorted(jax_tree - port)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
