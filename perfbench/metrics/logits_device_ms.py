@@ -1,0 +1,9 @@
+"""``models.model``: device milliseconds a traced batch spent in the logits
+(``models.logits``: the final norm and the head's product at every
+position): the device operations launched inside those program spans, from
+the profiler's trace."""
+from perfbench import program_spans
+
+
+def read(ctx):
+    return program_spans.ms_a_batch(ctx, "models.logits")

@@ -1,0 +1,8 @@
+"""``models.ssm``: device milliseconds a traced batch spent in the Mamba2
+layers (``models.layer.mamba``): the device operations launched inside
+those program spans, from the profiler's trace."""
+from perfbench import program_spans
+
+
+def read(ctx):
+    return program_spans.ms_a_batch(ctx, "models.layer.mamba")

@@ -26,47 +26,36 @@ Subpackages:
 ``Experiment(workloads=[...])`` also takes the evolving-graph streams of
 :mod:`repro_torch.stream` (``StreamSpec``) and the multi-tenant serving
 scenarios of :mod:`repro_torch.serve` (``ServeSpec``).
-"""
-from repro_torch.core.driver import WorkloadSpec, WorkloadTrace, build_workload
-from repro_torch.core.exec.artifacts import ArtifactCache
-from repro_torch.core.obs import MetricsRegistry, RunTrace, Span, Tracer, trace
-from repro_torch.core.experiment import (
-    CellResult,
-    Experiment,
-    ExperimentResult,
-    WorkloadCache,
-    score_prefetcher,
-    score_prefetchers_batched,
-)
-from repro_torch.core.registry import (
-    Prefetcher,
-    PrefetcherSpec,
-    get_prefetcher,
-    list_prefetchers,
-    register_prefetcher,
-    resolve_prefetchers,
-)
 
-__all__ = [
-    "ArtifactCache",
-    "MetricsRegistry",
-    "RunTrace",
-    "Span",
-    "Tracer",
-    "trace",
-    "WorkloadSpec",
-    "WorkloadTrace",
-    "build_workload",
-    "CellResult",
-    "Experiment",
-    "ExperimentResult",
-    "WorkloadCache",
-    "score_prefetcher",
-    "score_prefetchers_batched",
-    "Prefetcher",
-    "PrefetcherSpec",
-    "get_prefetcher",
-    "list_prefetchers",
-    "register_prefetcher",
-    "resolve_prefetchers",
-]
+The names below resolve lazily through ``__getattr__``: importing a
+submodule (``repro_torch.core.obs.spans``, which the model path imports)
+loads neither the workload driver nor the experiment grid.
+"""
+import importlib
+
+_EXPORTS = {
+    "repro_torch.core.driver": ("WorkloadSpec", "WorkloadTrace", "build_workload"),
+    "repro_torch.core.exec.artifacts": ("ArtifactCache",),
+    "repro_torch.core.obs": ("MetricsRegistry", "RunTrace", "Span", "Tracer", "trace"),
+    "repro_torch.core.experiment": ("CellResult", "Experiment", "ExperimentResult",
+                                    "WorkloadCache", "score_prefetcher",
+                                    "score_prefetchers_batched"),
+    "repro_torch.core.registry": ("Prefetcher", "PrefetcherSpec", "get_prefetcher",
+                                  "list_prefetchers", "register_prefetcher",
+                                  "resolve_prefetchers"),
+}
+_HOME = {name: module for module, names in _EXPORTS.items() for name in names}
+
+__all__ = [name for names in _EXPORTS.values() for name in names]
+
+
+def __getattr__(name):
+    if name not in _HOME:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_HOME[name]), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -18,9 +18,12 @@ Two layers:
 ``stage``/``collect_stages``/``record`` are re-exports of
 :mod:`repro_torch.core.obs.spans`: the same stage names double as
 structured spans (and per-stage latency histograms) when a tracer or
-metrics registry is active.  On the card a stage's host clock covers its
-device work, because every stage of the port ends by copying its device
-results to the host.
+metrics registry is active.  A stage's clock is the host's: on the card it
+covers the stage's device work only where the stage ends by copying its
+device results to the host, as the graph path's stages do.  The model
+path's spans (``models/``, ``launch/steps.py``) are enqueue intervals on
+the host, and their device time is read from the ``torch.profiler`` trace
+they enter (:func:`repro_torch.core.obs.spans.span`).
 """
 
 from __future__ import annotations

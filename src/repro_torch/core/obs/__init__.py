@@ -2,12 +2,8 @@
 from ``repro.core.obs``; the span model and attribute conventions are the
 JAX package's, ``docs/OBSERVABILITY.md``)."""
 
-from repro_torch.core.obs.manifest import git_sha, run_manifest
-from repro_torch.core.obs.metrics import (
-    MetricsRegistry,
-    histogram_quantile,
-    merge_snapshots,
-)
+from repro_torch.core.obs.manifest import run_manifest
+from repro_torch.core.obs.metrics import MetricsRegistry, merge_snapshots
 from repro_torch.core.obs.spans import (
     SPAN_DIR_ENV,
     TRACE_ID_ENV,
@@ -21,9 +17,7 @@ from repro_torch.core.obs.spans import (
     flush_worker_metrics,
     inc,
     metrics_registry,
-    observe,
     record,
-    set_gauge,
     span,
     stage,
     trace,
@@ -42,15 +36,11 @@ __all__ = [
     "current_metrics",
     "current_tracer",
     "flush_worker_metrics",
-    "git_sha",
-    "histogram_quantile",
     "inc",
     "merge_snapshots",
     "metrics_registry",
-    "observe",
     "record",
     "run_manifest",
-    "set_gauge",
     "span",
     "stage",
     "trace",

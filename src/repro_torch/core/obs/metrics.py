@@ -32,13 +32,6 @@ def bucket_of(value: float) -> int:
     return max(0, int(math.floor(math.log2(value / _HIST_FLOOR))) + 1)
 
 
-def bucket_le(index: int) -> float:
-    """Inclusive upper bound of bucket ``index``."""
-    if index <= 0:
-        return _HIST_FLOOR
-    return _HIST_FLOOR * (2.0**index)
-
-
 class MetricsRegistry:
     """Counters, gauges, and histograms for one process."""
 
@@ -123,24 +116,8 @@ def merge_snapshots(snapshots: Iterable[dict]) -> dict:
     return {"counters": counters, "gauges": gauges, "histograms": hists}
 
 
-def histogram_quantile(hist: dict, q: float) -> float:
-    """Approximate quantile from bucket counts (upper-bound estimate)."""
-    total = hist["count"]
-    if total == 0:
-        return 0.0
-    target = q * total
-    seen = 0.0
-    for b in sorted(hist["buckets"], key=int):
-        seen += hist["buckets"][b]
-        if seen >= target:
-            return min(bucket_le(int(b)), hist["max"])
-    return hist["max"]
-
-
 __all__: List[str] = [
     "MetricsRegistry",
-    "bucket_le",
     "bucket_of",
-    "histogram_quantile",
     "merge_snapshots",
 ]

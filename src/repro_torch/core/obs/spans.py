@@ -20,13 +20,20 @@ nothing when telemetry is off:
   on the timeline; :func:`span` is the attribute-bearing form.
 - **Metrics registry**: the active tracer owns a
   :class:`~repro_torch.core.obs.metrics.MetricsRegistry`; :func:`stage`
-  feeds per-stage latency histograms, and the :func:`inc` /
-  :func:`observe` / :func:`set_gauge` helpers feed counters and gauges
-  from anywhere.
+  feeds per-stage latency histograms, and :func:`inc` feeds counters from
+  anywhere.
 
-On the card a stage's clock is the host's: every stage of the port ends
-by copying its device results to the host, so the clock covers the
-device work.
+:func:`span` has a second sink: while ``torch.profiler`` records, it also
+opens ``torch.profiler.record_function(name)``, so the span lies on the
+profiler's clock, in the same trace as the device's timeline, and each
+kernel can be charged to the span open on the host when it was launched.
+
+Clocks.  A span's or stage's own duration is the host's clock.  It covers
+the device work only where the block ends by copying its device results
+to the host, as the graph path's stages do.  The model path
+(``models/``, ``launch/steps.py``) returns with its kernels still queued,
+so its spans' host durations are enqueue intervals; their device time is
+read from the profiler's trace.
 
 Cross-process collection: a :class:`Tracer` opened with a directory
 exports nothing itself; a process that finds :data:`SPAN_DIR_ENV` /
@@ -50,6 +57,8 @@ import time
 import uuid
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
+
+import torch
 
 from repro_torch.core.obs.metrics import MetricsRegistry, merge_snapshots
 
@@ -276,22 +285,6 @@ class RunTrace:
             out[s.name] = out.get(s.name, 0.0) + s.dur
         return out
 
-    def summary(self) -> dict:
-        """Compact stats block (committed by the bench): span and process
-        counts, per-name span counts and duration totals."""
-        names: Dict[str, int] = {}
-        for s in self.spans:
-            names[s.name] = names.get(s.name, 0) + 1
-        return {
-            "trace_id": self.trace_id,
-            "spans": len(self.spans),
-            "processes": [f"{proc}:{pid}" for pid, proc in self.processes()],
-            "span_counts": dict(sorted(names.items())),
-            "span_seconds": {
-                k: round(v, 6) for k, v in sorted(self.stage_totals().items())
-            },
-        }
-
     # ----------------------------------------------------------------- io
 
     def as_dict(self) -> dict:
@@ -415,22 +408,29 @@ def metrics_registry(
 
 @contextlib.contextmanager
 def span(name: str, **attrs) -> Iterator[Optional[Span]]:
-    """Record one attribute-bearing span (no-op without an active tracer).
+    """Record one attribute-bearing span: into the active tracer, and as
+    ``record_function(name)`` while ``torch.profiler`` records (no-op with
+    neither).
 
     Yields the open :class:`Span` so call sites can attach attributes
     discovered mid-flight (``sp.attrs["cache"] = "hit"``), or ``None``
-    when tracing is off — guard late-attr writes with ``if sp:``.
+    when no tracer is active — guard late-attr writes with ``if sp:``.
     """
     tracer = current_tracer()
-    if tracer is None:
+    profiling = torch.autograd._profiler_enabled()
+    if tracer is None and not profiling:
         yield None
         return
-    s = tracer.open_span(name, attrs)
-    t0 = time.perf_counter()
-    try:
-        yield s
-    finally:
-        tracer.close_span(s, time.perf_counter() - t0)
+    with torch.profiler.record_function(name) if profiling else contextlib.nullcontext():
+        if tracer is None:
+            yield None
+            return
+        s = tracer.open_span(name, attrs)
+        t0 = time.perf_counter()
+        try:
+            yield s
+        finally:
+            tracer.close_span(s, time.perf_counter() - t0)
 
 
 @contextlib.contextmanager
@@ -509,20 +509,6 @@ def inc(name: str, value: float = 1.0) -> None:
         reg.inc(name, value)
 
 
-def observe(name: str, value: float) -> None:
-    """Observe ``value`` into histogram ``name`` (no-op off)."""
-    reg = current_metrics()
-    if reg is not None:
-        reg.observe(name, value)
-
-
-def set_gauge(name: str, value: float) -> None:
-    """Set gauge ``name`` (no-op off)."""
-    reg = current_metrics()
-    if reg is not None:
-        reg.set_gauge(name, value)
-
-
 def flush_worker_metrics() -> None:
     """Flush the worker tracer's cumulative metrics snapshot (task
     boundaries call this so parent merges see worker-side counters)."""
@@ -553,9 +539,7 @@ __all__ = [
     "flush_worker_metrics",
     "inc",
     "metrics_registry",
-    "observe",
     "record",
-    "set_gauge",
     "span",
     "stage",
     "trace",

@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.obs import spans as obs
 from repro_torch.launch import specs
 from repro_torch.models import decode_step, forward, init_cache, loss_fn
 from repro_torch.models.model import DENSE_LAYOUT
@@ -65,13 +66,16 @@ def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
         """``(last-position logits (B, V), cache)`` of a batch of prompts:
         ``tokens`` (B, S) or ``embeds`` (B, S, D), with ``positions3`` (B,
-        3, S) and ``frames`` (B, Se, D) where the family takes them."""
-        with step_context(params):
-            logits, _, cache = forward(cfg, params, batch.get("tokens"),
-                                       embeds=batch.get("embeds"),
-                                       positions3=batch.get("positions3"),
-                                       encoder_frames=batch.get("frames"), return_cache=True)
-        return logits[:, -1], cache
+        3, S) and ``frames`` (B, Se, D) where the family takes them.  Runs
+        in the span ``launch.prefill_step``."""
+        with obs.span("launch.prefill_step"):
+            with step_context(params):
+                logits, _, cache = forward(cfg, params, batch.get("tokens"),
+                                           embeds=batch.get("embeds"),
+                                           positions3=batch.get("positions3"),
+                                           encoder_frames=batch.get("frames"),
+                                           return_cache=True)
+            return logits[:, -1], cache
 
     return prefill_step
 

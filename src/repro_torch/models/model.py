@@ -34,6 +34,15 @@ family.  The ``vlm`` decode rotates by plain rope at ``cache_len``, not by
 M-RoPE, as the JAX package's decode does.  The MoE's capacity follows the
 tokens of the call: a prefill routes ``B * S`` tokens, a decode step ``B``,
 so the two drop different slots (``models/moe.py``).
+
+The full-sequence forward opens spans (``obs.span``) where the
+benchmark's cells read them: ``models.layer.<kind>`` around each
+``mamba``, ``shared`` and ``moe`` layer, ``models.attention`` inside each
+attention block, ``models.logits`` and ``models.cache`` (the stacked
+cache).  They cost a flag check unless a tracer or ``torch.profiler`` is
+active; under the profiler they are ``record_function`` ranges, on the
+profiler's clock.  The ``dense``, ``encoder`` and ``encdec`` layers and
+``decode_step`` have none.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.obs import spans as obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
@@ -339,14 +349,15 @@ def _attention_block(p: Attention, cfg: ModelConfig, x, positions, attend=blocke
     card; training: its plain version); ``kv_x`` given is cross-attention
     over it."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, kv_x)
-    if kv_x is None and cfg.rope_theta and cfg.family != "encdec":
-        q, k = _apply_rope(cfg, q, k, positions, positions3)
-    o = attend_on_mesh(attend, q, k, v, causal=causal, sliding_window=cfg.sliding_window)
-    # pinned as q was: the gradient then reaches the merge of the heads in a
-    # layout its split back into heads can take
-    o = act_hint(o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), cfg.num_heads)
-    return o @ p.wo.to(x.dtype), (k, v)
+    with obs.span("models.attention"):
+        q, k, v = _qkv(p, cfg, x, kv_x)
+        if kv_x is None and cfg.rope_theta and cfg.family != "encdec":
+            q, k = _apply_rope(cfg, q, k, positions, positions3)
+        o = attend_on_mesh(attend, q, k, v, causal=causal, sliding_window=cfg.sliding_window)
+        # pinned as q was: the gradient then reaches the merge of the heads in a
+        # layout its split back into heads can take
+        o = act_hint(o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), cfg.num_heads)
+        return o @ p.wo.to(x.dtype), (k, v)
 
 
 def _attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, cache_len,
@@ -554,10 +565,14 @@ def train_layers(cfg: ModelConfig) -> Layers:
                   _remat(functools.partial(_encdec_layer, **plain), cfg))
 
 
-def _stack(pairs):
-    """``(torch.stack(firsts), torch.stack(seconds))`` of ``(a, b)``
-    pairs: per-layer ``(k, v)`` into the stacked cache."""
-    return torch.stack([a for a, _ in pairs]), torch.stack([b for _, b in pairs])
+def _stack(parts):
+    """Per-layer parts into the stacked cache, in the span ``models.cache``:
+    ``torch.stack`` of a list of tensors (states), or ``(torch.stack(firsts),
+    torch.stack(seconds))`` of a list of ``(a, b)`` pairs (``(k, v)``)."""
+    with obs.span("models.cache"):
+        if isinstance(parts[0], torch.Tensor):
+            return torch.stack(parts)
+        return torch.stack([a for a, _ in parts]), torch.stack([b for _, b in parts])
 
 
 def _encoder_forward(cfg: ModelConfig, enc: Encoder, frames: torch.Tensor, layers: Layers):
@@ -598,7 +613,8 @@ def _forward(cfg: ModelConfig, params: LM, tokens, return_cache: bool, layers: L
             if cfg.family != "encdec":
                 x = shard_hint(x, "batch", None, None)
             if cfg.family == "moe":
-                x, a, kv = layers.moe(layer, cfg, x, positions, positions3)
+                with obs.span("models.layer.moe"):
+                    x, a, kv = layers.moe(layer, cfg, x, positions, positions3)
                 aux = aux + a
             elif cfg.family == "encdec":
                 x, kv = layers.encdec(layer, cfg, x, positions, enc_out)
@@ -613,14 +629,17 @@ def _forward(cfg: ModelConfig, params: LM, tokens, return_cache: bool, layers: L
     elif cfg.family == "ssm":
         states = []
         for layer in params.blocks:
-            x, st = layers.mamba(layer, cfg, x)
+            with obs.span("models.layer.mamba"):
+                x, st = layers.mamba(layer, cfg, x)
             if return_cache:
                 states.append(st)
         if return_cache:
-            caches = torch.stack(states)
+            caches = _stack(states)
     else:
         x, caches = _hybrid_forward(cfg, params, x, positions, return_cache, layers)
-    return _logits(params, x), aux, caches
+    with obs.span("models.logits"):
+        logits = _logits(params, x)
+    return logits, aux, caches
 
 
 @torch.no_grad()
@@ -650,24 +669,25 @@ def _hybrid_forward(cfg, params: LM, x, positions, return_cache, layers: Layers)
     """Zamba2: groups of ``hybrid_attn_every`` Mamba layers, each followed
     by the one shared attention block; then the tail layers."""
     every, groups, rest = _groups(cfg)
-    g_states, g_k, g_v, t_states = [], [], [], []
+    g_states, g_kv, t_states = [], [], []
     for g in range(groups):
         group = []
         for layer in params.blocks[g * every:(g + 1) * every]:
-            x, st = layers.mamba(layer, cfg, x)
+            with obs.span("models.layer.mamba"):
+                x, st = layers.mamba(layer, cfg, x)
             group.append(st)
-        x, (k, v) = layers.shared(params.shared_attn, cfg, x, positions)
+        with obs.span("models.layer.shared"):
+            x, (k, v) = layers.shared(params.shared_attn, cfg, x, positions)
         if return_cache:
-            g_states.append(torch.stack(group))
-            g_k.append(k)
-            g_v.append(v)
+            g_states.append(_stack(group))
+            g_kv.append((k, v))
     for layer in params.blocks[groups * every:]:
-        x, st = layers.mamba(layer, cfg, x)
+        with obs.span("models.layer.mamba"):
+            x, st = layers.mamba(layer, cfg, x)
         t_states.append(st)
     if not return_cache:
         return x, None
-    t = torch.stack(t_states) if rest else None
-    return x, (torch.stack(g_states), (torch.stack(g_k), torch.stack(g_v)), t)
+    return x, (_stack(g_states), _stack(g_kv), _stack(t_states) if rest else None)
 
 
 # --------------------------------------------------------------------------

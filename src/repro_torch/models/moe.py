@@ -24,6 +24,11 @@ Determinism: the dispatch adds only zeros onto a kept slot, and with
 the same float in either order; so on the card, where ``index_put`` and
 ``index_add`` accumulate in no fixed order, the output does not depend on
 it.
+
+Tracing: on one device the phases run in the spans ``models.moe.route``,
+``models.moe.dispatch`` (the plan and the scatter), ``models.moe.experts``
+and ``models.moe.combine``.  The mesh path has none: its phases hold the
+collectives, which a compute span would count as compute.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.core.obs import spans as obs
 from repro_torch.models.sharding import reduce_partial, shard_hint, to_layout
 
 
@@ -131,30 +137,34 @@ def moe_ffn(
     e = p.router.shape[1]
     capacity = max(int(capacity_factor * n * top_k / e), 1)
 
-    expert_idx, weights, aux = route_topk(x, p.router, top_k)
-    if recorded_plan is not None:
-        # replay: dispatch along the recorded plan; stale slots are
-        # zero-weighted by the current router output below
-        flat_e, rank, keep = (t.to(x.device) for t in recorded_plan)
-        flat_e, rank, keep = flat_e.long(), rank.to(torch.int32), keep.bool()
-    else:
-        flat_e, rank, keep = _dispatch_plan(expert_idx, e, capacity)
-    plan = (flat_e, rank, keep)
+    with obs.span("models.moe.route"):
+        expert_idx, weights, aux = route_topk(x, p.router, top_k)
+    with obs.span("models.moe.dispatch"):
+        if recorded_plan is not None:
+            # replay: dispatch along the recorded plan; stale slots are
+            # zero-weighted by the current router output below
+            flat_e, rank, keep = (t.to(x.device) for t in recorded_plan)
+            flat_e, rank, keep = flat_e.long(), rank.to(torch.int32), keep.bool()
+        else:
+            flat_e, rank, keep = _dispatch_plan(expert_idx, e, capacity)
+        plan = (flat_e, rank, keep)
 
-    token_of_slot = torch.arange(n, device=x.device).repeat_interleave(top_k)
-    # weight slots by the current router only where the replayed expert
-    # matches the current assignment
-    cur_e = expert_idx.reshape(-1)
-    w_slot = torch.where(flat_e == cur_e, weights.reshape(-1), 0.0)
-    w_slot = torch.where(keep, w_slot, 0.0)
+        token_of_slot = torch.arange(n, device=x.device).repeat_interleave(top_k)
+        # weight slots by the current router only where the replayed expert
+        # matches the current assignment
+        cur_e = expert_idx.reshape(-1)
+        w_slot = torch.where(flat_e == cur_e, weights.reshape(-1), 0.0)
+        w_slot = torch.where(keep, w_slot, 0.0)
 
-    hint = shard_hint if n >= 16384 else _same
-    safe_rank = torch.where(keep, rank, capacity - 1).long()
-    dispatch = hint(_dispatch(x[token_of_slot], flat_e, safe_rank, keep, e, capacity),
-                    None, "batch", None)
-    y_exp = _experts(dispatch, p, hint)
-    y = _combine(y_exp, flat_e, safe_rank, w_slot, token_of_slot, n)
-    return hint(y, "batch", None), aux, plan
+        hint = shard_hint if n >= 16384 else _same
+        safe_rank = torch.where(keep, rank, capacity - 1).long()
+        dispatch = hint(_dispatch(x[token_of_slot], flat_e, safe_rank, keep, e, capacity),
+                        None, "batch", None)
+    with obs.span("models.moe.experts"):
+        y_exp = _experts(dispatch, p, hint)
+    with obs.span("models.moe.combine"):
+        y = _combine(y_exp, flat_e, safe_rank, w_slot, token_of_slot, n)
+        return hint(y, "batch", None), aux, plan
 
 
 def _moe_ffn_mesh(x, p: MoEParams, top_k: int, capacity_factor: float) -> tuple:
