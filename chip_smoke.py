@@ -956,6 +956,77 @@ def k6_families(dev):
     return err
 
 
+def ssm_gate_check(dev, time_it: bool = True):
+    """The Mamba2 gate kernel (``kernels/ssm_gate``) against its plain
+    version on the card: x and z read in place from a projection of the
+    model's width, bfloat16 within one bfloat16 step of every element
+    (zamba2-1.2b's shapes: one 4,096-token row block, d_inner 4,096, 64
+    heads; mamba2-780m's; the reduced models'), float32 within rtol 1e-5
+    (the mean's sum in another order, exp and rsqrt by other functions); a
+    projection 4 bytes off 16-byte alignment refused.  With ``time_it``,
+    the kernel and the plain chain at a 32,768-token batch by CUDA events.
+    Returns the max abs error of the float32 cases."""
+    import torch
+
+    from repro_torch.kernels.ssm_gate.ssm_gate import ssm_gate, ssm_gate_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def inputs(bsz, s, h, p, n, dtype, wdtype, shift=0):
+        """x and z start ``shift`` elements into a projection 8 wider."""
+        d_inner = h * p
+        zx = torch.randn((bsz, s, 2 * d_inner + 2 * n + h + 8), generator=g, device=dev)
+        zx[..., shift + d_inner:shift + 2 * d_inner] *= 3.0  # z: silu's tails on both sides
+        zx = zx.to(dtype)[..., shift:]
+        y = torch.randn((bsz, s, h, p), generator=g, device=dev).to(dtype)
+        d = (0.5 + torch.rand(h, generator=g, device=dev)).to(wdtype)
+        w = (0.5 + torch.rand(d_inner, generator=g, device=dev)).to(wdtype)
+        return y, zx[..., :d_inner].reshape(bsz, s, h, p), zx[..., d_inner:2 * d_inner], d, w
+
+    cases = [("zamba2-1.2b, one 4,096-token row block", 1, 4096, 64, 64, 64, bf16, bf16),
+             ("zamba2-1.2b, float32 weights", 2, 300, 64, 64, 64, bf16, f32),
+             ("mamba2-780m", 2, 300, 48, 64, 128, bf16, bf16),
+             ("reduced, bfloat16", 2, 24, 8, 32, 16, bf16, bf16),
+             ("zamba2-1.2b, float32", 1, 512, 64, 64, 64, f32, f32),
+             ("reduced, float32", 2, 24, 8, 32, 16, f32, f32)]
+    err, moved = 0.0, []
+    for name, bsz, s, h, p, n, dtype, wdtype in cases:
+        args = inputs(bsz, s, h, p, n, dtype, wdtype)
+        launches = ssm_gate.launches
+        out = ssm_gate(*args)
+        ref = ssm_gate_plain(*args)
+        check(ssm_gate.launches == launches + 1 and out.dtype == ref.dtype
+              and out.shape == ref.shape, f"ssm_gate {name}: no launch, or dtype / shape")
+        if dtype == bf16:
+            step = torch.ldexp(torch.ones_like(ref, dtype=f32),
+                               torch.frexp(ref.float().abs()).exponent - 8)
+            off = (out.float() - ref.float()).abs() / step
+            check(bool(torch.isfinite(out).all()) and bool((off <= 1).all()),
+                  f"ssm_gate {name}: {int((off > 1).sum())} elements more than one bfloat16 "
+                  f"step from the plain version (most {float(off.max())} steps)")
+            moved.append(f"{name} {float((out != ref).float().mean()):.2e}")
+        else:
+            err = max(err, close(out, ref, rtol=1e-5, atol=0.0, what=f"ssm_gate {name}"))
+    try:
+        ssm_gate(*inputs(1, 8, 64, 64, 64, bf16, bf16, shift=2))
+    except ValueError as e:
+        check("aligned" in str(e), f"ssm_gate misaligned: unexpected error {e}")
+    else:
+        raise SmokeError("ssm_gate ran on a projection off 16-byte alignment")
+    log(f"  ssm_gate == plain: bfloat16 within one step (share of elements a step off: "
+        f"{'; '.join(moved)}), float32 max abs err {err:.3g}")
+    if time_it:
+        args = inputs(8, 4096, 64, 64, 64, bf16, bf16)
+        ms = cuda_ms(lambda: ssm_gate(*args), dev, reps=20)
+        plain = cuda_ms(lambda: ssm_gate_plain(*args), dev, reps=5)
+        gbytes = 4 * 8 * 4096 * 4096 * 2 / 1e9  # y, x, z read, the output written, bf16
+        log(f"  ssm_gate at 8 x 4,096 tokens, d_inner 4,096, bf16: {ms:.4f} ms "
+            f"({gbytes / ms:.3f} TB/s over {gbytes:.3f} GB; bound {gbytes / 3.35:.4f} ms at "
+            f"3.35 TB/s), plain chain {plain:.3f} ms")
+    return err
+
+
 # ------------------------------------------------------------ phases 3-4
 
 
@@ -1837,7 +1908,8 @@ def path_f(dev, run_path, errs, totals):
 
     cfg = get_config("zamba2_1p2b")
     every = cfg.hybrid_attn_every
-    exact = dict(flash_attention=cfg.num_layers // every, ssd_scan=cfg.num_layers)
+    exact = dict(flash_attention=cfg.num_layers // every, ssd_scan=cfg.num_layers,
+                 ssm_gate=cfg.num_layers)
     lm = tuple(exact)
     t0 = time.perf_counter()
     model = init_params(cfg, PATH_F_SEED, device=dev)
@@ -2544,7 +2616,8 @@ TRAIN_LEAF_RTOL = 1e-5
 # hybrid families' float32 gradients lie up to ~3e-5 of it from a float64
 # evaluation in either package (tests/test_torch_train.py).
 TRAIN_GRAD_ATOL = {"dense": 1e-6, "ssm": 3e-5, "hybrid": 3e-5}
-NO_LM_KERNEL = {"flash_attention": 0, "ssd_scan": 0}  # training takes the plain versions
+# training takes the plain versions
+NO_LM_KERNEL = {"flash_attention": 0, "ssd_scan": 0, "ssm_gate": 0}
 T_BATCH, T_SEQ = 8, 256  # the launcher's defaults
 T_REMAT_LAYERS = 4  # smollm-360m's depth under the remat policies not its own
 # 10 steps with one checkpoint, resumed to 15 (the issue's 20 + 5 cut for
@@ -2821,12 +2894,13 @@ def phase16(gold: dict, dev, run_path):
 
 
 def guard_checks(dev):
-    """K5 and K6 raise on CUDA inputs that require grad under grad mode,
-    and run under ``torch.no_grad``."""
+    """K5, K6 and the Mamba2 gate raise on CUDA inputs that require grad
+    under grad mode, and run under ``torch.no_grad``."""
     import torch
 
     from repro_torch.kernels.flash_attn.flash_attn import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssm_gate.ssm_gate import ssm_gate
 
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((1, 64, 4, 64), generator=g, device=dev, requires_grad=True)
@@ -2835,8 +2909,10 @@ def guard_checks(dev):
     dt = torch.rand((1, 64, 2), generator=g, device=dev)
     a = -torch.rand((2,), generator=g, device=dev)
     b = torch.randn((1, 64, 16), generator=g, device=dev)
+    y, z, d = x.detach(), x.detach().reshape(1, 64, 64), a.detach()
     for name, call in (("flash_attention", lambda: flash_attention(q, k, k)),
-                       ("ssd_scan", lambda: ssd_scan(x, dt, a, b, b, chunk=16))):
+                       ("ssd_scan", lambda: ssd_scan(x, dt, a, b, b, chunk=16)),
+                       ("ssm_gate", lambda: ssm_gate(y, x, z, d, z[0, 0]))):
         try:
             call()
         except RuntimeError as e:
@@ -3868,6 +3944,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attn import flash_attn as fa_mod
     from repro_torch.kernels.segment_sum import segment_sum as seg_mod
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
+    from repro_torch.kernels.ssm_gate import ssm_gate as gate_mod
     from repro_torch.memsim import engine
 
     dev = torch.device("cuda", 0)
@@ -3891,7 +3968,7 @@ def main() -> int:
     counters = (lru_hits, fused_levels, seg_mod.segment_sum,
                 bd_mod.basedelta_compress_tiles, bd_mod.basedelta_decompress_tiles,
                 gather_mod.amc_gather, gather_mod.amc_gather_segment_sum,
-                fa_mod.flash_attention, ssd_mod.ssd_scan)
+                fa_mod.flash_attention, ssd_mod.ssd_scan, gate_mod.ssm_gate)
     totals = {c.__name__: 0 for c in counters}
     # launches by route, for the kernels that count them, on the paths only
     route_totals = {c.__name__: dict.fromkeys(c.routes, 0) for c in counters
@@ -3922,7 +3999,7 @@ def main() -> int:
 
     phase("phase 1: build")
     sources = list(SOURCES) + [seg_mod.SOURCE, bd_mod.SOURCE, gather_mod.SOURCE,
-                               fa_mod.SOURCE, ssd_mod.SOURCE]
+                               fa_mod.SOURCE, ssd_mod.SOURCE, gate_mod.SOURCE]
     secs = build.build(sources)
     log(f"  built {len(secs)} libraries in {time.perf_counter() - phase_t[-1]:.1f} s "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
@@ -3949,7 +4026,8 @@ def main() -> int:
                 segment_sum=segment_sum_check(dev),
                 basedelta_compress_tiles=k3_err, basedelta_decompress_tiles=k3_err,
                 amc_gather=k4_err, amc_gather_segment_sum=k4_err,
-                flash_attention=k5_families(dev), ssd_scan=k6_families(dev))
+                flash_attention=k5_families(dev), ssd_scan=k6_families(dev),
+                ssm_gate=ssm_gate_check(dev))
     sync(dev)
 
     slice1 = ("lru_hits", "fused_levels", "segment_sum")

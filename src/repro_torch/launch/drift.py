@@ -2,9 +2,9 @@
 on the same prompt of tokens, for a model of any family but ``encdec``
 (whose prefill needs frames), beside two yardsticks of the same shape:
 
-- the witness: the same prefill with the plain PyTorch versions of K5 and
-  K6 (``blocked_attention_plain``, ``ssd_chunked_plain``) in place of the
-  kernels, on the same device;
+- the witness: the same prefill with the plain PyTorch versions of K5, K6
+  and the Mamba2 gate (``blocked_attention_plain``, ``ssd_chunked_plain``,
+  ``ssm_gate_plain``) in place of the kernels, on the same device;
 - the one-ulp move: the prefill once more with every embedding entry
   moved by one float32 ulp (relative 2^-23, random sign).
 
@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+from repro_torch.kernels.ssm_gate.ssm_gate import ssm_gate_plain
 from repro_torch.launch.serve import serve_loop
 from repro_torch.launch.steps import decode_cache_from_prefill, make_prefill_step
 from repro_torch.models import attention, ssm
@@ -41,14 +42,16 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 @contextlib.contextmanager
 def plain_versions():
-    """While open, the model's prefill runs the plain versions of K5 and K6
-    on whatever device its tensors are on; their launch counts stay put."""
-    saved = attention.flash_attention, ssm.ssd_scan
-    attention.flash_attention, ssm.ssd_scan = blocked_attention_plain, ssd_chunked_plain
+    """While open, the model's prefill runs the plain versions of K5, K6 and
+    the gate on whatever device its tensors are on; their launch counts stay
+    put."""
+    saved = attention.flash_attention, ssm.ssd_scan, ssm.ssm_gate
+    attention.flash_attention, ssm.ssd_scan, ssm.ssm_gate = (
+        blocked_attention_plain, ssd_chunked_plain, ssm_gate_plain)
     try:
         yield
     finally:
-        attention.flash_attention, ssm.ssd_scan = saved
+        attention.flash_attention, ssm.ssd_scan, ssm.ssm_gate = saved
 
 
 def _layer_states(cache) -> List[torch.Tensor]:

@@ -5,9 +5,12 @@
 its plain version on a CPU tensor; both mask the intra-chunk decay before
 the exponent, where the JAX function masks after it and gives NaN at long
 chunks (``kernels/ssd_scan/ref.py``).  ``ssm_block`` and the O(1)
-recurrent ``ssm_decode_step`` are plain PyTorch with the JAX package's
-casts: y comes back from the scan in x's dtype, the ``D`` skip and the
-gated RMSNorm run in float32, and the output projection in x's dtype.
+recurrent ``ssm_decode_step`` keep the JAX package's casts: y comes back
+from the scan in x's dtype, the ``D`` skip and the gated RMSNorm run in
+float32, and the output projection in x's dtype.  In ``ssm_block`` the
+``D`` skip, the gate and the norm are one kernel (``kernels/ssm_gate``) on
+CUDA tensors that are no DTensor and that autograd does not record; the
+plain ops elsewhere (``_fused_gate``).
 
 Shapes: d_inner = expand * d_model; H = d_inner / head_dim; P = head_dim;
 N = ssm_state.
@@ -20,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch.core.obs import spans as obs
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+from repro_torch.kernels.ssm_gate.ssm_gate import gated_rms_norm, ssm_gate, ssm_gate_plain
 from repro_torch.models.sharding import act_hint, local_on_mesh, splits_heads
 
 
@@ -52,10 +57,15 @@ def ssd_chunked(
 
 
 def _gated_out(params: SSMParams, y, z, x_dtype):
-    y = y * F.silu(z.float())
-    var = torch.mean(y * y, dim=-1, keepdim=True)
-    y = (y * torch.rsqrt(var + 1e-6)) * params.norm
-    return y.to(x_dtype) @ params.w_out.to(x_dtype)
+    return gated_rms_norm(y, z, params.norm).to(x_dtype) @ params.w_out.to(x_dtype)
+
+
+def _fused_gate(*ts: torch.Tensor) -> bool:
+    """Whether the gate of ``ts`` runs as one kernel: CUDA tensors, none a
+    DTensor (on a mesh the norm's mean spans heads sharded over ranks), and
+    autograd not recording (the kernel has no backward)."""
+    return (all(not isinstance(t, DTensor) and t.is_cuda for t in ts)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
 
 
 def ssm_block(
@@ -79,9 +89,10 @@ def ssm_block(
     a = -torch.exp(params.a_log.float())
     xh = xi.reshape(*xi.shape[:-1], h, cfg.ssm_head_dim)
     y, state = _scan(scan, xh, dt, a, b, c, cfg.ssm_chunk, init_state)
-    y = y + xh.float() * params.d_skip[None, None, :, None]
-    y = y.reshape(xi.shape)
-    return _gated_out(params, y, z, x.dtype), state
+    with obs.span("models.ssm.gate"):
+        args = (y, xh, z, params.d_skip, params.norm)
+        y = ssm_gate(*args) if _fused_gate(*args) else ssm_gate_plain(*args)
+    return y @ params.w_out.to(x.dtype), state
 
 
 def _scan(scan, xh, dt, a, b, c, chunk, init_state):

@@ -11,15 +11,16 @@ sum, K3 (the BaseΔ tile kernels) and K4 (the AMC gather kernels) with
 ``nvcc`` and holds each against its plain PyTorch version bit for bit, on
 the families ``chip_smoke.py`` uses; K5 (``flash_attention``) and K6
 (``ssd_scan``) against their plain versions within ``chip_smoke.py``'s
-stated tolerances, K5 also alone at the shapes of the moe, vlm and encdec
-families (cross-attention 448 x 1,500, GQA groups of 6 and 7 at hd 128, a
+stated tolerances, the Mamba2 gate (``ssm_gate``) within one bfloat16
+step, K5 also alone at the shapes of the moe, vlm and encdec families
+(cross-attention 448 x 1,500, GQA groups of 6 and 7 at hd 128, a
 4,096-key window over 8,192 positions); the reduced zamba2 on the card
 against the JAX package's golden record
 (``tests/data/torch_port_golden_lm.json``), and the reduced mixtral,
 qwen2-vl and whisper against theirs
-(``tests/data/torch_port_golden_families.json``); K5 and K6 refusing
-inputs that require grad; and the training gradients of ``loss_fn`` on
-the card against the CPU's.
+(``tests/data/torch_port_golden_families.json``); K5, K6 and the gate
+refusing inputs that require grad; and the training gradients of
+``loss_fn`` on the card against the CPU's.
 """
 import os
 import sys
@@ -108,10 +109,25 @@ def test_reduced_lm_matches_golden_on_the_card():
 
 
 @pytest.mark.cuda
+def test_ssm_gate_matches_plain_on_the_card():
+    """The Mamba2 gate kernel against the plain chain: at zamba2-1.2b's
+    shapes (one 4,096-token row block, d_inner 4,096, 64 heads, x and z
+    read in place from the projection) within one bfloat16 step of every
+    element, and on the float32 route and the other configurations'
+    shapes (``chip_smoke.ssm_gate_check``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    assert chip_smoke.ssm_gate_check(torch.device("cuda", 0), time_it=False) < 1e-3
+
+
+@pytest.mark.cuda
 def test_lm_kernels_refuse_inputs_that_require_grad():
-    """K5 and K6 have no backward: on the card they raise on an input that
-    requires grad (their output would cut the graph) and run under
-    ``torch.no_grad``."""
+    """K5, K6 and the Mamba2 gate have no backward: on the card they raise
+    on an input that requires grad (their output would cut the graph) and
+    run under ``torch.no_grad``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))

@@ -259,6 +259,7 @@ def test_float32_drift_tool_runs_on_the_cpu():
 
     from repro_torch.kernels.flash_attn.ref import blocked_attention_plain
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+    from repro_torch.kernels.ssm_gate.ssm_gate import ssm_gate_plain
     from repro_torch.launch.drift import plain_versions
     from repro_torch.models import attention, ssm
 
@@ -272,11 +273,11 @@ def test_float32_drift_tool_runs_on_the_cpu():
     assert out["plain_vs_decode"] == out["prefill_vs_decode"]
     assert set(out["prefill_vs_plain"].values()) == {0.0}
     assert set(out["one_ulp_move"]) == {"g_state", "g_k", "g_v", "t_state", "logits"}
-    kernels = attention.flash_attention, ssm.ssd_scan
+    kernels = attention.flash_attention, ssm.ssd_scan, ssm.ssm_gate
     with plain_versions():
-        assert (attention.flash_attention, ssm.ssd_scan) == (blocked_attention_plain,
-                                                             ssd_chunked_plain)
-    assert (attention.flash_attention, ssm.ssd_scan) == kernels
+        assert (attention.flash_attention, ssm.ssd_scan, ssm.ssm_gate) == (
+            blocked_attention_plain, ssd_chunked_plain, ssm_gate_plain)
+    assert (attention.flash_attention, ssm.ssd_scan, ssm.ssm_gate) == kernels
 
 
 def test_serve_loop_timing_tool_runs_on_the_cpu():

@@ -1,6 +1,6 @@
 """The model path's spans (``repro_torch.core.obs.spans``), on the CPU at
-the reduced zamba2 (5 layers: two groups and a tail) and mixtral (2
-layers, 4 experts at top-2).
+the reduced zamba2 (5 layers: two groups and a tail, each Mamba2 layer's
+gate a span of its own) and mixtral (2 layers, 4 experts at top-2).
 
 Off (no tracer, no profiler) a prefill launches the same aten ops as with
 every span a null context; an obs tracer or a metrics registry adds none.
@@ -110,7 +110,7 @@ def expected_spans(cfg):
     if cfg.family == "hybrid":
         groups, rest = divmod(n, cfg.hybrid_attn_every)
         # each group's states, then the groups' states, their (k, v) and the tail's
-        out.update({"models.layer.mamba": n, "models.layer.shared": groups,
+        out.update({"models.layer.mamba": n, "models.ssm.gate": n, "models.layer.shared": groups,
                     "models.attention": groups, "models.cache": groups + 2 + (rest > 0)})
     else:
         out.update({"models.layer.moe": n, "models.attention": n, "models.cache": 1})
@@ -136,6 +136,7 @@ def test_spans_enter_the_profiler_nested(prefill):
     assert all(inside(v, top) for v in spans.values())
     if cfg.family == "hybrid":
         assert inside(spans["models.attention"], spans["models.layer.shared"])
+        assert inside(spans["models.ssm.gate"], spans["models.layer.mamba"])
         assert not inside(spans["models.layer.mamba"], spans["models.layer.shared"])
     else:
         for phase in ("route", "dispatch", "experts", "combine"):
@@ -154,9 +155,11 @@ def test_spans_enter_the_tracer_nested(prefill):
     assert counts == expected_spans(cfg)
     by_id = {s.span_id: s for s in spans}
     assert tracer.result.by_name("launch.prefill_step")[0].parent_id is None
-    inner = "models.moe.experts" if cfg.family == "moe" else "models.attention"
-    outer = "models.layer.moe" if cfg.family == "moe" else "models.layer.shared"
-    assert all(by_id[s.parent_id].name == outer for s in tracer.result.by_name(inner))
+    pairs = ([("models.moe.experts", "models.layer.moe")] if cfg.family == "moe" else
+             [("models.attention", "models.layer.shared"),
+              ("models.ssm.gate", "models.layer.mamba")])
+    for inner, outer in pairs:
+        assert all(by_id[s.parent_id].name == outer for s in tracer.result.by_name(inner))
 
 
 def test_outputs_are_bit_equal_traced_and_untraced(prefill):
