@@ -7,7 +7,8 @@ Everything cell-specific comes from files found by name:
 traffic file's ``kind`` names the module that drives the cell's entry and
 computes its end-to-end metrics (``kinds/<kind>.py``); the cell's own file
 (``workloads/<cell>.json``) says what the check samples and the limits it
-holds; each per-layer metric is read by ``metrics/<metric>.py``.
+holds; each per-layer metric is read by ``metrics/<metric>.py``, a
+metric split by cell (``<metric>.<suffix>``) by its quantity's reader.
 """
 from __future__ import annotations
 
@@ -20,11 +21,11 @@ import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-from perfbench import check, devtrace, weights
+from perfbench import check, devtrace, family_module, weights
 from perfbench.traffic import Traffic
 
 HERE = Path(__file__).resolve().parent
@@ -86,20 +87,24 @@ def model_config(config: dict):
 
 def build_model(config: dict, seed: int, device):
     """The program's model, filled leaf by leaf (each leaf drawn, loaded
-    through ``convert.load_lm_tree`` and freed) from the benchmark's tree."""
+    through ``convert.load_lm_tree`` and freed) from the benchmark's tree,
+    which has to fill every parameter."""
     from repro_torch.convert import load_lm_tree
     from repro_torch.models import LM
 
     model = LM(model_config(config), device=device)
     named = dict(model.named_parameters())
-    dtype = getattr(torch, config["param_dtype"])
+    unfilled = set(named)
     for path, shape in sorted(weights.tree_shapes(config).items()):
-        leaf = weights.draw_leaf(path, shape, seed, dtype, device, config["num_layers"])
+        leaf = weights.draw_leaf(config, path, shape, seed, device)
         names = weights.names_of(path, named)
         if not names:
             raise RuntimeError(f"the program's model has no parameter for {'.'.join(path)}")
         load_lm_tree({n: named[n] for n in names}, weights.nest(path, leaf))
+        unfilled -= set(names)
         del leaf
+    if unfilled:
+        raise RuntimeError(f"the benchmark's tree fills none of {sorted(unfilled)}")
     return model
 
 
@@ -128,7 +133,9 @@ class Batch:
 
 @dataclass
 class Context:
-    """What a metric reader reads."""
+    """What a metric reader reads: the window's batches, and of the traced
+    cycle its batches, its device trace and the counters the program
+    incremented (``obs.inc``) while it ran."""
 
     cell: Cell
     peaks: dict
@@ -136,13 +143,16 @@ class Context:
     window_s: float
     trace: Optional[devtrace.Trace] = None
     traced: List[Batch] = field(default_factory=list)
+    counters: Dict[str, float] = field(default_factory=dict)  # the traced cycle's
 
     @property
     def cfg(self) -> dict:
         return self.cell.config
 
     def count(self, name: str):
-        return importlib.import_module(f"perfbench.counts.{name}")
+        """The counts ``counts/<name>.py`` (a kernel's, or a family's
+        ``model_<family>``)."""
+        return family_module("counts", name)
 
     def model_flops(self, rows: int, length: int) -> int:
         return self.count(f"model_{self.cell.family}").flops(self.cfg, rows, length)
@@ -156,8 +166,22 @@ class Context:
                    for b in batches for ops, nbytes in mod.launches(self.cfg, b.rows, b.length))
 
 
+def metric_reader(name: str) -> Path:
+    """The reader of metric ``name``: ``metrics/<name>.py``, else that of
+    its longest dotted prefix that has one.  A cell that reports a quantity
+    whose entry lists other cells adds an entry of its own,
+    ``<metric>.<suffix>`` with its ``workloads``, read by the quantity's
+    reader: no existing entry is edited."""
+    parts = name.split(".")
+    for n in range(len(parts), 0, -1):
+        path = HERE / "metrics" / (".".join(parts[:n]) + ".py")
+        if path.is_file():
+            return path
+    raise FileNotFoundError(f"no perfbench/metrics/{name}.py: no reader of metric {name!r}")
+
+
 def read_metric(name: str, ctx: Context):
-    path = HERE / "metrics" / f"{name}.py"
+    path = metric_reader(name)
     spec = importlib.util.spec_from_file_location(
         "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
@@ -181,18 +205,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     batches, window_s = driver.window(seconds)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
-    prof_trace, traced = None, []
+    prof_trace, traced, counters = None, [], {}
     if trace:
+        from repro_torch.core.obs import metrics_registry
         from torch.profiler import ProfilerActivity, profile, record_function
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         with profile(activities=acts) as prof:
-            with record_function(devtrace.WINDOW_SPAN):
+            # the program's counters (``obs.inc``) count the traced cycle alone
+            with record_function(devtrace.WINDOW_SPAN), metrics_registry() as registry:
                 traced = driver.traced()
         prof_trace = devtrace.read(prof)
+        counters = registry.snapshot()["counters"]
 
     e2e = dict(cell.kind.end_to_end(batches, window_s), setup_s=setup_s)
-    ctx = Context(cell, peaks, batches, window_s, prof_trace, traced)
+    ctx = Context(cell, peaks, batches, window_s, prof_trace, traced, counters)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = e2e.get(m["name"]) if not trace else read_metric(m["name"], ctx)

@@ -32,11 +32,11 @@ The workload file's ``limits`` name the readings compared and their limits.
 """
 from __future__ import annotations
 
-import importlib
 from typing import Dict, List
 
 import torch
 
+from perfbench import family_module
 from perfbench.reference.common import Matmul
 
 TIE = 0.25  # logits: the widest gap a sound bf16 run served was 0.090 (PERF.md)
@@ -84,7 +84,7 @@ def compare_batch(cfg: dict, family: str, tree: dict, tokens, prog_parts: dict, 
                   prog_first, readings: Readings, mm: Matmul | None = None):
     """Hold one batch's outputs against the reference forward, part by part
     as the reference makes them (so its cache is never held whole)."""
-    ref_mod = importlib.import_module(f"perfbench.reference.{family}")
+    ref_mod = family_module("reference", family)
     v = cfg["vocab_size"]
     b = prog_logits.shape[0]
     branches = None
@@ -135,14 +135,14 @@ def judge(values: Dict[str, float], limits: Dict[str, float]):
 
 
 def program_parts(family: str, cfg: dict, cache) -> dict:
-    return importlib.import_module(f"perfbench.reference.{family}").program_parts(cfg, cache)
+    return family_module("reference", family).program_parts(cfg, cache)
 
 
 def reference_parts(family: str, cfg: dict, tree: dict, tokens, mm: Matmul):
     """A reference forward's parts and logits, held whole (the control puts
     them in the program's place)."""
     parts, logits = {}, None
-    ref_mod = importlib.import_module(f"perfbench.reference.{family}")
+    ref_mod = family_module("reference", family)
     for name, t in ref_mod.run(cfg, tree, tokens, mm):
         if name == "logits":
             logits = t

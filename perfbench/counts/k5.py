@@ -4,6 +4,8 @@ multiply and an add in Q K^T and in P V) for every query head.  Bytes: q,
 k, v and the output, each read or written once, in bf16."""
 from __future__ import annotations
 
+from perfbench import family_module
+
 KERNELS = ("flash_attn_tc_kernel", "flash_attn_f32tc_kernel")
 
 
@@ -12,11 +14,9 @@ def causal_pairs(length: int) -> int:
 
 
 def attention_layers(cfg: dict) -> int:
-    """Attention calls of one forward: each layer's (``moe``), or each call
-    of the shared block (``hybrid``)."""
-    if cfg["family"] == "hybrid":
-        return cfg["num_layers"] // cfg["hybrid_attn_every"]
-    return cfg["num_layers"]
+    """Attention calls of one forward, as the family's counts
+    (``model_<family>.py``) give them."""
+    return family_module("counts", f"model_{cfg['family']}").attention_calls(cfg)
 
 
 def launch(cfg: dict, rows: int, length: int, elem_bytes: int = 2):

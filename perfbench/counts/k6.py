@@ -6,6 +6,8 @@ read by C and update (2 chunk N P each).  Bytes: x read and y written
 once."""
 from __future__ import annotations
 
+from perfbench import family_module
+
 KERNELS = ("ssd_state_kernel", "ssd_carry_kernel", "ssd_output_kernel")
 
 
@@ -22,6 +24,7 @@ def launch(cfg: dict, rows: int, length: int, elem_bytes: int = 2):
 
 
 def launches(cfg: dict, rows: int, length: int):
-    if cfg["family"] not in ("ssm", "hybrid"):
-        return []
-    return [launch(cfg, rows, length)] * cfg["num_layers"]
+    """One launch for each Mamba2 layer the family's counts
+    (``model_<family>.py``) give."""
+    layers = family_module("counts", f"model_{cfg['family']}").ssm_layers(cfg)
+    return [launch(cfg, rows, length)] * layers if layers else []

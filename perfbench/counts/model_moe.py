@@ -8,6 +8,16 @@ from __future__ import annotations
 from perfbench.counts import k5
 
 
+def attention_calls(cfg: dict) -> int:
+    """K5's calls a forward: one a layer."""
+    return cfg["num_layers"]
+
+
+def ssm_layers(cfg: dict) -> int:
+    """K6's calls a forward: none."""
+    return 0
+
+
 def flops(cfg: dict, rows: int, length: int) -> int:
     d, f, hd = cfg["d_model"], cfg["d_ff"], cfg["head_dim"]
     h, kv, e, k = cfg["num_heads"], cfg["num_kv_heads"], cfg["moe_experts"], cfg["moe_top_k"]

@@ -89,13 +89,16 @@ def attention_block(p: dict, x, cfg: dict, mm: Matmul, eps: float):
     return x + mm(o, p["attn"]["wo"]), k, v
 
 
-def last_attention_block(p: dict, xl, owner, k, v, cfg: dict, mm: Matmul, eps: float):
+def last_attention_block(p: dict, xl, owner, k, v, cfg: dict, mm: Matmul, eps: float,
+                         block: int = 256):
     """:func:`attention_block` for the last position alone, from other
     states of it: ``xl`` (n, D) are last-position states of the requests
     ``owner`` (n,), and ``k``, ``v`` (B, S, KV, hd) the block's keys and
     values of every request, of which the positions before the last are
     taken (causal attention: they do not depend on the last position).
-    Returns ``xl`` plus the attention output."""
+    The states of one request attend over its keys together, ``block`` at
+    a time, each query head over its own KV head's keys.  Returns ``xl``
+    plus the attention output."""
     s = k.shape[1]
     hd, h, kv = cfg["head_dim"], cfg["num_heads"], cfg["num_kv_heads"]
     hn = rms_norm(xl, p["ln1"], eps)
@@ -103,13 +106,17 @@ def last_attention_block(p: dict, xl, owner, k, v, cfg: dict, mm: Matmul, eps: f
     q = rope(mm(hn, p["attn"]["wq"]).view(-1, 1, h, hd), theta, s - 1)[:, 0]
     kl = rope(mm(hn, p["attn"]["wk"]).view(-1, 1, kv, hd), theta, s - 1)[:, 0]
     vl = mm(hn, p["attn"]["wv"]).view(-1, kv, hd)
-    out = torch.empty_like(q)
-    for j in range(xl.shape[0]):
-        r = int(owner[j])
-        kr = torch.cat([k[r, :s - 1], kl[j, None]]).repeat_interleave(h // kv, dim=1)
-        vr = torch.cat([v[r, :s - 1], vl[j, None]]).repeat_interleave(h // kv, dim=1)
-        sc = torch.einsum("hd,shd->hs", q[j] * hd ** -0.5, kr)
-        out[j] = torch.einsum("hs,shd->hd", torch.softmax(sc, dim=-1), vr)
+    qg = (q * hd ** -0.5).view(-1, kv, h // kv, hd)  # head i reads KV head i // (h / kv)
+    out = torch.empty_like(qg)
+    for r in torch.unique(owner).tolist():
+        mine = (owner == r).nonzero()[:, 0]
+        kr, vr = k[r, :s - 1], v[r, :s - 1]  # (S - 1, KV, hd)
+        for js in mine.split(block):
+            sc = torch.cat([torch.einsum("nkgd,skd->nkgs", qg[js], kr),
+                            torch.einsum("nkgd,nkd->nkg", qg[js], kl[js])[..., None]], dim=-1)
+            w = torch.softmax(sc, dim=-1)
+            out[js] = (torch.einsum("nkgs,skd->nkgd", w[..., :-1], vr)
+                       + w[..., -1:] * vl[js][:, :, None, :])
     return xl + mm(out.reshape(-1, h * hd), p["attn"]["wo"])
 
 
@@ -177,6 +184,8 @@ def embed(tree: dict, tokens) -> torch.Tensor:
 
 
 def last_logits(tree: dict, x, cfg: dict, mm: Matmul, eps: float) -> torch.Tensor:
-    """The last position's logits over the vocabulary (B, V)."""
+    """The last position's logits over the vocabulary (B, V), by the head, or
+    by the embedding where the tree has no head (a tied model)."""
     h = rms_norm(x[:, -1], tree["final_norm"], eps)
-    return mm(h, tree["lm_head"][: cfg["vocab_size"]].T)
+    head = tree["lm_head"] if "lm_head" in tree else tree["embed"]
+    return mm(h, head[: cfg["vocab_size"]].T)

@@ -3,6 +3,10 @@
 attention block (pre-norm attention with rope, then SwiGLU), then the tail
 Mamba2 layers, the final norm and the head.
 
+Leaves (``tree_shapes``): the embedding, the final norm and an untied head;
+the layers' entry norms and Mamba2 blocks stacked over ``blocks``; the one
+shared block's norms, attention and MLP under ``shared_attn``.
+
 Parts: ``state.<layer>`` (B, H, P, N), each Mamba2 layer's final SSM state;
 ``k.<group>`` and ``v.<group>`` (B, S, KV, hd), the shared block's keys
 (after rope) and values at each call."""
@@ -17,6 +21,28 @@ from perfbench.reference.common import (
     rms_norm,
     swiglu,
 )
+from perfbench.weights import attention_shapes, padded_vocab
+
+
+def tree_shapes(cfg: dict) -> dict:
+    """Path -> shape of every leaf the forward reads."""
+    d, L, f = cfg["d_model"], cfg["num_layers"], cfg["d_ff"]
+    vp = padded_vocab(cfg["vocab_size"])
+    out = {("embed",): (vp, d), ("final_norm",): (d,), ("lm_head",): (vp, d)}
+    d_in = cfg["ssm_expand"] * d
+    h = d_in // cfg["ssm_head_dim"]
+    n = cfg["ssm_state"]
+    out[("blocks", "ln1")] = (L, d)
+    for k, s in {"w_in": (d, 2 * d_in + 2 * n + h), "a_log": (h,), "d_skip": (h,),
+                 "dt_bias": (h,), "norm": (d_in,), "w_out": (d_in, d)}.items():
+        out[("blocks", "ssm", k)] = (L, *s)
+    out[("shared_attn", "ln1")] = (d,)
+    out[("shared_attn", "ln2")] = (d,)
+    for k, s in attention_shapes(cfg).items():
+        out[("shared_attn", "attn", k)] = s
+    for k, s in {"wg": (d, f), "wu": (d, f), "wd": (f, d)}.items():
+        out[("shared_attn", "mlp", k)] = s
+    return out
 
 
 def run(cfg: dict, tree: dict, tokens, mm: Matmul):

@@ -11,6 +11,10 @@ choice by choice, ranked within their expert in that order, and a slot
 whose rank reaches the capacity dropped.  A token's
 output is the weighted sum of its kept slots' experts.
 
+Leaves (``tree_shapes``): the embedding, the final norm and an untied head;
+each layer's two norms, attention and experts with their router, stacked
+over ``blocks``.
+
 Parts: ``k.<layer>`` and ``v.<layer>`` (B, S, KV, hd), keys after rope;
 ``branches``, ``(owner (n,), logits (n, V))``: the last position's logits
 under each routing of it that a near tie admits (see :func:`branch_moe`),
@@ -31,6 +35,7 @@ from perfbench.reference.common import (
     rms_norm,
     swiglu,
 )
+from perfbench.weights import attention_shapes, padded_vocab
 
 # The program routes from bf16 activations, the reference from float32 ones,
 # so where the reference's routing of a request's last position lies near a
@@ -43,7 +48,23 @@ from perfbench.reference.common import (
 # through attention, within rounding.
 ROUTE_MARGIN = 0.05  # router logits
 RANK_MARGIN = 0.025  # of the capacity
-MAX_BRANCHES = 64  # routings followed a request; past it the request is unjudged
+MAX_BRANCHES = 1024  # routings followed a request; past it the request is unjudged
+
+
+def tree_shapes(cfg: dict) -> dict:
+    """Path -> shape of every leaf the forward reads."""
+    d, L, f = cfg["d_model"], cfg["num_layers"], cfg["d_ff"]
+    vp = padded_vocab(cfg["vocab_size"])
+    out = {("embed",): (vp, d), ("final_norm",): (d,), ("lm_head",): (vp, d)}
+    e = cfg["moe_experts"]
+    out[("blocks", "ln1")] = (L, d)
+    out[("blocks", "ln2")] = (L, d)
+    for k, s in attention_shapes(cfg).items():
+        out[("blocks", "attn", k)] = (L, *s)
+    for k, s in {"router": (d, e), "wg": (e, d, f), "wu": (e, d, f),
+                 "wd": (e, f, d)}.items():
+        out[("blocks", "moe", k)] = (L, *s)
+    return out
 
 
 def moe(p: dict, i: int, x, cfg: dict, mm: Matmul, rows: int = 1):

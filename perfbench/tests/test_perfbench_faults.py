@@ -6,7 +6,8 @@ the step: zeros), half of the batch left out with the mean over the rest
 in its place, and the served token altered where it is produced.  (The
 exchange between chips does not exist on one chip.)  The same run
 unbroken comes out correct, and the control, the reference in the
-program's place with float8 products, comes out not correct."""
+program's place with float8 products, comes out not correct.  Each cell
+whose configuration has a CPU cut (``tiny_cuts/<config>.json``) is taken."""
 from __future__ import annotations
 
 import json
@@ -15,9 +16,9 @@ import pytest
 import torch
 
 from perfbench import bench, check
-from perfbench.tests.tiny import TINY, tiny_root
+from perfbench.tests.tiny import TINY, tiny_cells, tiny_root
 
-CELLS = ["zamba2-1.2b.prefill", "mixtral-8x22b.prefill"]
+CELLS = tiny_cells()  # every cell whose configuration has a CPU cut
 FAULTS = ["sound", "state_unchanged", "half_batch", "token_altered"]
 
 

@@ -1,7 +1,7 @@
 """The plain reference against the port's ``forward`` (through
-``make_prefill_step``) at reduced zamba2 and mixtral configurations on the
-CPU, in float32, where the two should agree to rounding: the last logits,
-the served token, and every cache part."""
+``make_prefill_step``) at each configuration's CPU cut
+(``tiny_cuts/<config>.json``), in float32, where the two should agree to
+rounding: the last logits, the served token, and every cache part."""
 from __future__ import annotations
 
 import json
@@ -9,7 +9,7 @@ import json
 import pytest
 import torch
 
-from perfbench import bench, check, weights
+from perfbench import bench, check, family_module, weights
 from perfbench.reference.common import Matmul, causal_attention, ssd
 from perfbench.tests.tiny import HERE, TINY
 
@@ -38,10 +38,11 @@ def test_reference_matches_the_port_in_float32(name):
     assert values["token_gap"] == 0.0
     assert values["logits_err"] < 1e-4 and values["kv_err"] < 1e-4
     assert values.get("state_err", 0.0) < 1e-4
-    # every part of the program's cache was compared
+    # every part of the program's cache was compared: k and v of each
+    # attention call, the state of each Mamba2 layer, as the family's counts say
+    counts = family_module("counts", f"model_{cfg['family']}")
     assert len(check.program_parts(cfg["family"], cfg, cache)) == (
-        cfg["num_layers"] + 2 * (cfg["num_layers"] // cfg["hybrid_attn_every"])
-        if cfg["family"] == "hybrid" else 2 * cfg["num_layers"])
+        2 * counts.attention_calls(cfg) + counts.ssm_layers(cfg))
 
 
 def test_tree_is_the_seed_and_the_programs_parameters():
@@ -81,6 +82,25 @@ def test_attention_reference_is_softmax_over_the_past():
     sc = sc.masked_fill(torch.ones(40, 40, dtype=torch.bool).triu(1), float("-inf"))
     ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("block", [1, 256])
+def test_last_position_attention_is_the_blocks_last_row(block):
+    """The last position's attention from the other positions' keys, as the
+    check follows a routing, is the full block's last row."""
+    from perfbench.reference.common import attention_block, last_attention_block
+
+    g = torch.Generator().manual_seed(0)
+    cfg = dict(head_dim=8, num_heads=6, num_kv_heads=2, rope_theta=1e4)
+    d = 16
+    shapes = {"wq": (d, 48), "wk": (d, 16), "wv": (d, 16), "wo": (48, d)}
+    p = {"ln1": 1 + 0.1 * torch.randn(d, generator=g),
+         "attn": {w: torch.randn(*s, generator=g) / 4 for w, s in shapes.items()}}
+    x = torch.randn(3, 20, d, generator=g)
+    full, k, v = attention_block(p, x, cfg, Matmul(), 1e-6)
+    owner = torch.tensor([2, 0, 1, 2])
+    last = last_attention_block(p, x[owner, -1], owner, k, v, cfg, Matmul(), 1e-6, block)
+    torch.testing.assert_close(last, full[owner, -1], rtol=1e-5, atol=1e-5)
 
 
 def test_fp8_matmul_rounds_both_operands():

@@ -1,6 +1,11 @@
 """A copy of the benchmark with small cells beside the real ones, for the
 CPU tests: the same files and code, the configurations cut to CPU sizes and
-the check drawing its batches from every cycle of the smaller pool."""
+the check drawing its batches from every cycle of the smaller pool.
+
+A configuration's CPU cut is a file of its own, ``tiny_cuts/<config>.json``:
+the keys it overrides, keeping the layer pattern and depth of the real
+configuration and narrowing its widths.  The fault and reference tests take
+every configuration that has one, and every cell of such a configuration."""
 from __future__ import annotations
 
 import json
@@ -9,15 +14,17 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 ROOT = HERE.parent
+CUTS = Path(__file__).resolve().parent / "tiny_cuts"
 
-TINY = {
-    # the layer pattern and depth of the real configurations, narrow
-    "zamba2-1.2b": dict(d_model=128, num_heads=4, num_kv_heads=4, head_dim=64, d_ff=256,
-                        vocab_size=512, ssm_state=16, ssm_head_dim=32, ssm_chunk=16),
-    "mixtral-8x22b": dict(d_model=128, num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
-                          vocab_size=512),
-}
+TINY = {p.stem: json.loads(p.read_text()) for p in sorted(CUTS.glob("*.json"))}
 TRAFFIC = {"lengths": [64, 128, 256], "batch_tokens": 512, "pool_cycles": 4}
+
+
+def tiny_cells() -> list:
+    """The cells of ``BENCHMARK.json`` whose configuration has a cut, in the
+    manifest's order."""
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    return [w["name"] for w in manifest["workloads"] if w["config"] in TINY]
 
 
 def tiny_root(dst: Path) -> Path:

@@ -1,6 +1,8 @@
 """Random weights of a configuration, drawn on the device from the seed in
-the JAX package's parameter tree layout: nested dicts, each layer's tensors
-stacked on axis 0 (``tree["blocks"]["attn"]["wq"]`` is ``(L, D, H hd)``).
+the tree its family's reference reads (``reference/<family>.py``'s
+``tree_shapes``), the JAX package's parameter tree layout: nested dicts,
+each layer's tensors stacked on axis 0 (``tree["blocks"]["attn"]["wq"]``
+is ``(L, D, H hd)``).
 
 One leaf is one draw (a few large calls for a whole model), in the dtype
 the model is served in.  The distributions follow the port's
@@ -24,6 +26,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from perfbench import family_module
 from perfbench.traffic import sub_seed
 
 Path_ = Tuple[str, ...]
@@ -36,49 +39,39 @@ def padded_vocab(v: int) -> int:
     return -(-v // 128) * 128
 
 
-def _attention(cfg) -> Dict[str, tuple]:
+def attention_shapes(cfg: dict) -> Dict[str, tuple]:
+    """The q / k / v / o projections' shapes of one attention block."""
     d, hd = cfg["d_model"], cfg["head_dim"]
     return {"wq": (d, cfg["num_heads"] * hd), "wk": (d, cfg["num_kv_heads"] * hd),
             "wv": (d, cfg["num_kv_heads"] * hd), "wo": (cfg["num_heads"] * hd, d)}
 
 
+def family(cfg: dict):
+    """The reference module of ``cfg``'s family (``reference/<family>.py``),
+    which owns the family's tree."""
+    return family_module("reference", cfg["family"])
+
+
 def tree_shapes(cfg: dict) -> Dict[Path_, tuple]:
-    """Path -> shape of every leaf of a ``hybrid`` or ``moe`` model."""
-    d, L, f = cfg["d_model"], cfg["num_layers"], cfg["d_ff"]
-    vp = padded_vocab(cfg["vocab_size"])
-    out: Dict[Path_, tuple] = {("embed",): (vp, d), ("final_norm",): (d,), ("lm_head",): (vp, d)}
-    if cfg["family"] == "hybrid":
-        d_in = cfg["ssm_expand"] * d
-        h = d_in // cfg["ssm_head_dim"]
-        n = cfg["ssm_state"]
-        out[("blocks", "ln1")] = (L, d)
-        for k, s in {"w_in": (d, 2 * d_in + 2 * n + h), "a_log": (h,), "d_skip": (h,),
-                     "dt_bias": (h,), "norm": (d_in,), "w_out": (d_in, d)}.items():
-            out[("blocks", "ssm", k)] = (L, *s)
-        out[("shared_attn", "ln1")] = (d,)
-        out[("shared_attn", "ln2")] = (d,)
-        for k, s in _attention(cfg).items():
-            out[("shared_attn", "attn", k)] = s
-        for k, s in {"wg": (d, f), "wu": (d, f), "wd": (f, d)}.items():
-            out[("shared_attn", "mlp", k)] = s
-    elif cfg["family"] == "moe":
-        e = cfg["moe_experts"]
-        out[("blocks", "ln1")] = (L, d)
-        out[("blocks", "ln2")] = (L, d)
-        for k, s in _attention(cfg).items():
-            out[("blocks", "attn", k)] = (L, *s)
-        for k, s in {"router": (d, e), "wg": (e, d, f), "wu": (e, d, f),
-                     "wd": (e, f, d)}.items():
-            out[("blocks", "moe", k)] = (L, *s)
-    else:
-        raise ValueError(f"no weights for family {cfg['family']!r}")
-    return out
+    """Path -> shape of every leaf of the model: the family's
+    ``tree_shapes``, the leaves its reference forward reads."""
+    return family(cfg).tree_shapes(cfg)
 
 
-def draw_leaf(path: Path_, shape: tuple, seed: int, dtype, device, layers: int) -> torch.Tensor:
-    """One leaf of a model of ``layers`` layers, from a generator of its own
-    (so leaves can be drawn in any order, or one at a time)."""
+def draw_leaf(cfg: dict, path: Path_, shape: tuple, seed: int, device) -> torch.Tensor:
+    """One leaf, from a generator of its own (so leaves can be drawn in any
+    order, or one at a time), in the configuration's ``param_dtype``.  The
+    family's ``draw_leaf(path, shape, generator, dtype, device, layers)``,
+    where it has one, may draw the leaf itself; where it returns ``None``
+    this module's rules draw it."""
+    dtype = getattr(torch, cfg["param_dtype"])
+    layers = cfg["num_layers"]
     g = torch.Generator(device=device).manual_seed(sub_seed(seed, "w/" + "/".join(path)))
+    own = getattr(family(cfg), "draw_leaf", None)
+    if own is not None:
+        leaf = own(path, shape, g, dtype, device, layers)
+        if leaf is not None:
+            return leaf
     leaf = path[-1]
 
     def normal():
@@ -105,10 +98,9 @@ def draw_leaf(path: Path_, shape: tuple, seed: int, dtype, device, layers: int) 
 
 def draw_tree(cfg: dict, seed: int, device) -> dict:
     """The whole tree (nested dicts of leaves)."""
-    dtype = getattr(torch, cfg["param_dtype"])
     tree: dict = {}
     for path, shape in sorted(tree_shapes(cfg).items()):
-        leaf = draw_leaf(path, shape, seed, dtype, device, cfg["num_layers"])
+        leaf = draw_leaf(cfg, path, shape, seed, device)
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
